@@ -1,0 +1,8 @@
+"""ImageNet normalization constants (from ``hocon/data/augment.py``)."""
+
+from __future__ import annotations
+
+import numpy as np
+
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)

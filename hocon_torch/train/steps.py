@@ -1,0 +1,201 @@
+"""Forward passes of the train and eval steps.
+
+Port of ``hocon/train/steps.py``: ``warp_loss`` is the body of
+``make_warp_train_step``'s ``loss_fn`` (one HOCNet pass over [ref; tgt],
+masked supervised losses, the photometric warp through kernels K1 and K3),
+with the same arguments and term names; ``eval_step`` is the forward of
+``make_eval_step``. Batches are dicts in the reference's layout (NHWC
+images, uint8 or normalized float), as numpy arrays or tensors.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from hocon_torch.data.augment import IMAGENET_MEAN, IMAGENET_STD
+from hocon_torch.device import resolve_device
+from hocon_torch.geometry.mano import ManoModel
+from hocon_torch.geometry.project import persp_project, transform_points
+from hocon_torch.models.losses import total_supervised_loss
+from hocon_torch.render.raster import soft_rasterize
+from hocon_torch.render.warp import WarpOutput, bilinear_sample, photometric_loss
+
+
+def batch_to_device(batch: dict, device: torch.device) -> dict:
+    """Arrays and tensors of a (nested) batch dict onto ``device``."""
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, dict):
+            out[k] = batch_to_device(v, device)
+        elif isinstance(v, torch.Tensor):
+            out[k] = v.to(device)
+        elif isinstance(v, np.ndarray) or np.isscalar(v):
+            out[k] = torch.as_tensor(np.asarray(v), device=device)
+        else:
+            out[k] = v
+    return out
+
+
+def _gt_from_batch(batch: dict) -> dict:
+    gt = {}
+    for src, dst in (
+        ("joints3d", "joints_c_mm"),
+        ("verts3d", "verts_c_mm"),
+        ("joints2d", "joints2d"),
+        ("objverts3d", "obj_verts_c_mm"),
+        ("obj_verts_mask", "obj_verts_mask"),
+    ):
+        if src in batch:
+            gt[dst] = batch[src]
+    return gt
+
+
+def _device_images(img: torch.Tensor) -> torch.Tensor:
+    """uint8 crops -> ImageNet-normalized f32; float images pass through."""
+    if img.dtype == torch.uint8:
+        img = img.float() / 255.0
+        return (img - img.new_tensor(IMAGENET_MEAN)) / img.new_tensor(IMAGENET_STD)
+    return img
+
+
+def _unnormalize(img: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(
+        img * img.new_tensor(IMAGENET_STD) + img.new_tensor(IMAGENET_MEAN), 0.0, 1.0
+    )
+
+
+def _combined_mesh(out: dict, batch: dict, mano: ManoModel, use_gt_hand: bool):
+    """Hand (+ object) camera-space mesh of one view, with per-sample faces."""
+    if use_gt_hand and "verts3d" in batch:
+        hand = batch["verts3d"] / 1000.0 + batch["center3d"][:, None]
+    else:
+        hand = out["verts_cam"]
+    b = hand.shape[0]
+    faces = mano.faces[None].expand((b,) + mano.faces.shape)
+    if "obj_verts_cam" in out and "obj_faces" in batch:
+        verts = torch.cat([hand, out["obj_verts_cam"]], dim=1)
+        # Padded object faces are (0, 0, 0); offsetting keeps them
+        # degenerate, so the rasterizer culls them.
+        ofaces = batch["obj_faces"].long() + hand.shape[1]
+        return verts, torch.cat([faces, ofaces], dim=1)
+    return hand, faces
+
+
+def _avg_pool(x: torch.Tensor, d: int) -> torch.Tensor:
+    """Non-overlapping d x d mean over dims 1, 2 (VALID: ragged edge dropped)."""
+    b, h, w = x.shape[:3]
+    hh, ww = h // d, w // d
+    x = x[:, : hh * d, : ww * d]
+    return x.reshape((b, hh, d, ww, d) + x.shape[3:]).sum(dim=(2, 4)) / (d * d)
+
+
+def warp_loss(
+    model: torch.nn.Module,
+    mano: ManoModel,
+    batch: dict,
+    image_size: tuple[int, int],
+    hand_lambdas: dict | None = None,
+    obj_lambdas: dict | None = None,
+    lambda_consist: float = 1.0,
+    consist_gt_refs: bool = True,
+    sigma: float = 1.0,
+    gamma: float = 1.0 / 40.0,
+    backend: str = "auto",
+    photo_downscale: int = 1,
+    backface_cull: bool = True,
+    device: str | torch.device | None = None,
+) -> tuple[torch.Tensor, dict]:
+    """Photometric-consistency loss of a {"ref", "tgt"} pair batch.
+
+    Returns ``(total, terms)`` with the reference's term names. k-frame
+    clips (tgt leaves shaped (B, K-1, ...)) fold the targets into the batch.
+    """
+    dev = resolve_device(device)
+    batch = batch_to_device(batch, dev)
+    ref, tgt = dict(batch["ref"]), dict(batch["tgt"])
+    ref["image"] = _device_images(ref["image"])
+    tgt["image"] = _device_images(tgt["image"])
+    b = ref["image"].shape[0]
+    if tgt["image"].dim() == 5:
+        k1 = tgt["image"].shape[1]
+        tgt = {k: v.reshape((b * k1,) + v.shape[2:]) for k, v in tgt.items()}
+
+        def tile(x):
+            return x.repeat_interleave(k1, dim=0)
+    else:
+        def tile(x):
+            return x
+
+    obj = None
+    if "obj_verts_can" in ref:
+        obj = torch.cat([ref["obj_verts_can"], tgt["obj_verts_can"]])
+    out = model(
+        torch.cat([ref["image"], tgt["image"]]),
+        torch.cat([ref["camintr"], tgt["camintr"]]),
+        mano,
+        obj,
+    )
+    out_ref = {k: v[:b] for k, v in out.items()}
+    out_tgt = {k: v[b:] for k, v in out.items()}
+
+    sup_ref, terms_ref = total_supervised_loss(
+        out_ref, _gt_from_batch(ref), ref["sup_mask"],
+        hand_lambdas=hand_lambdas, obj_lambdas=obj_lambdas,
+    )
+    sup_tgt, _ = total_supervised_loss(
+        out_tgt, _gt_from_batch(tgt), tgt["sup_mask"],
+        hand_lambdas=hand_lambdas, obj_lambdas=obj_lambdas,
+    )
+
+    # Render each target view carrying reference-frame pixel coordinates,
+    # warp the reference image there, compare with the target image.
+    verts_tgt, faces = _combined_mesh(out_tgt, tgt, mano, use_gt_hand=False)
+    verts_ref, _ = _combined_mesh(out_ref, ref, mano, use_gt_hand=consist_gt_refs)
+    tgt_pix = persp_project(verts_tgt, tgt["camintr"])
+    ref_pix = persp_project(tile(verts_ref), tile(ref["camintr"]))
+    raster = soft_rasterize(
+        tgt_pix, verts_tgt[..., 2], faces, attrs=ref_pix, image_size=image_size,
+        sigma=sigma, gamma=gamma, backend=backend, backface_cull=backface_cull,
+    )
+    coords, mask = raster.attr, raster.sil * raster.vis
+    tgt_img = _unnormalize(tgt["image"])
+    if photo_downscale > 1:
+        d = photo_downscale
+        coords, mask, tgt_img = _avg_pool(coords, d), _avg_pool(mask, d), _avg_pool(tgt_img, d)
+    warped = bilinear_sample(tile(_unnormalize(ref["image"])), coords)
+    photo, photo_terms = photometric_loss(warped, tgt_img, mask)
+    warp_out = WarpOutput(warped=warped, mask=mask, raster=raster)
+
+    total = sup_ref + sup_tgt + lambda_consist * photo
+    terms = {f"ref_{k}": v for k, v in terms_ref.items()}
+    terms.update(photo_terms)
+    terms["loss_total"] = total
+    terms["mask_area"] = torch.mean(torch.sum(warp_out.mask, dim=(1, 2)))
+    return total, terms
+
+
+@torch.no_grad()
+def eval_step(
+    model: torch.nn.Module,
+    mano: ManoModel,
+    batch: dict,
+    device: str | torch.device | None = None,
+) -> dict:
+    """Eval forward: the predictions ``make_eval_step`` returns."""
+    dev = resolve_device(device)
+    batch = batch_to_device(batch, dev)
+    out = model(
+        _device_images(batch["image"]), batch["camintr"], mano,
+        batch.get("obj_verts_can"),
+    )
+    preds = {k: out[k] for k in
+             ("joints_c_mm", "verts_c_mm", "joints2d", "joints_cam", "verts_cam")}
+    if "obj_verts_c_mm" in out:
+        preds["obj_verts_c_mm"] = out["obj_verts_c_mm"]
+        if "obj_corners_can" in batch:
+            corners_cam = transform_points(
+                batch["obj_corners_can"], out["obj_rot"], out["obj_trans"]
+            )
+            preds["obj_corners_c_mm"] = (corners_cam - out["center_cam"]) * 1000.0
+    return preds
