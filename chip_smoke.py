@@ -50,7 +50,7 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 # Tolerances of kernel vs plain version (same inputs, both f32 on the card).
 SIL_ATOL = 2e-5  # the reference's silhouette parity bar
-ATOL = 2e-4  # attr / depth / vis bar of the reference
+ATOL = 2e-4  # depth / vis bar of the reference
 SAMPLE_ATOL = 1e-5  # lerps of texels in [0, 1]
 
 
@@ -183,49 +183,59 @@ def phase_k1(torch, device, scene, out: dict) -> torch.Tensor:
 
     tgt, ref, faces, k = scene
     cfg = RC.default_config()
-    worst, coords = 0.0, None
+    worst, coords, failures = 0.0, None, []
     coeffs, bounds, krange = raster_inputs(torch, tgt, ref, faces, k, RES)
     for gamma in GAMMAS:
         args = (coeffs, bounds, krange, (RES, RES), SIGMA, gamma, cfg)
-        got = RC.raster_fwd_cuda(*args)
+        # The dispatcher the slice calls, chunk ranges included.
+        got = RC.raster_fwd(coeffs, bounds, (RES, RES), SIGMA, gamma, cfg)
         torch.cuda.synchronize()
         want = RC.raster_fwd_plain(*args)
         want64 = RC.raster_fwd_plain(coeffs.double(), *args[1:])
         torch.cuda.synchronize()
-        errs = {}
-        for name, g, w in zip(("sil", "vis"), got[:3:2], want[:3:2]):
-            errs[name] = float((g - w).abs().max())
-            bar = SIL_ATOL if name == "sil" else ATOL
-            if not errs[name] <= bar:
-                fail(f"K1 gamma={gamma:.4g} {name}: max err {errs[name]:.3g} > {bar}")
-        # Attributes: rows of sliver faces make them sensitive to f32
-        # rounding at the 0.1 px level (both versions round differently,
-        # the kernel with FMAs), so the float64 evaluation of the same
-        # coefficients is the arbiter: the kernel may be no further from
-        # it than the f32 plain version is, plus the bar.
-        errs["attr"] = float((got[1] - want64[1]).abs().max())
-        plain_attr = float((want[1] - want64[1]).abs().max())
-        if not errs["attr"] <= plain_attr + ATOL:
-            fail(f"K1 gamma={gamma:.4g} attr: kernel {errs['attr']:.3g} from float64, "
-                 f"plain f32 {plain_attr:.3g}")
+        n_user = got[1].shape[1] - 1  # attr holds C pixel coordinates, then zbar
+        errs = {name: float((g - w).abs().max()) for name, g, w in (
+            ("sil", got[0], want[0]), ("vis", got[2], want[2]))}
+        # Rows of rim sliver faces make the attribute block sensitive to
+        # f32 rounding, and the plain version (no FMAs) rounds worse than
+        # the kernel: its depth lands up to ~8e-4 from a float64 evaluation
+        # of the same coefficients, its pixel coordinates up to ~0.6 px.
+        # So float64 is the arbiter. Depth, in [0, 1], must lie within the
+        # bar of it; each pixel-coordinate channel may be no further from it
+        # than the f32 plain version's same channel is, plus the bar.
+        def from64(x, c):
+            return float((x[1][:, c] - want64[1][:, c]).abs().max())
+
+        errs["depth"], plain_depth = from64(got, n_user), from64(want, n_user)
+        coord_errs = [(from64(got, c), from64(want, c)) for c in range(n_user)]
+        errs["coords"] = max(e for e, _ in coord_errs)
+        plain_coords = max(p for _, p in coord_errs)
         # m and log(den) carry zbar / gamma: the depth bar times 1/gamma,
-        # with the same float64 arbiter as the attributes.
+        # with the same float64 arbiter as the coordinates.
         def mden_errs(x):
             m = float((x[:, 0] - want64[3][:, 0]).abs().max())
             den = float(((x[:, 1] - want64[3][:, 1]).abs() / want64[3][:, 1]).max())
             return m, den
 
         (m_err, den_rel), (m_plain, den_plain) = mden_errs(got[3]), mden_errs(want[3])
-        if not (m_err <= m_plain + ATOL / gamma and den_rel <= den_plain + ATOL / gamma):
-            fail(f"K1 gamma={gamma:.4g} mden from float64: m {m_err:.3g} (plain {m_plain:.3g}), "
-                 f"den rel {den_rel:.3g} (plain {den_plain:.3g})")
         sil_cov = float((want[0] > 1e-3).float().mean())
         log(f"K1 gamma=1/{1 / gamma:.0f} ({'fixed-m' if 1 / gamma <= 60 else 'streaming'}): "
-            f"max abs err sil {errs['sil']:.3g} vis {errs['vis']:.3g} attr {errs['attr']:.3g} "
-            f"(plain f32 {plain_attr:.3g}) from float64; "
-            f"m {m_err:.3g} (plain {m_plain:.3g}) den rel {den_rel:.3g} (plain {den_plain:.3g}); "
-            f"covered share {sil_cov:.3f}")
-        worst = max(worst, errs["sil"], errs["attr"], errs["vis"])
+            f"max abs err from plain: sil {errs['sil']:.3g} vis {errs['vis']:.3g}; "
+            f"from float64: depth {errs['depth']:.3g} (plain f32 {plain_depth:.3g}) "
+            f"coords {errs['coords']:.3g} (plain f32 {plain_coords:.3g}) "
+            f"m {m_err:.3g} (plain {m_plain:.3g}) den rel {den_rel:.3g} "
+            f"(plain {den_plain:.3g}); covered share {sil_cov:.3f}")
+        tag = f"K1 gamma={gamma:.4g}"
+        for name, bar in (("sil", SIL_ATOL), ("vis", ATOL), ("depth", ATOL)):
+            if not errs[name] <= bar:
+                failures.append(f"{tag} {name}: max err {errs[name]:.3g} > {bar}")
+        for c, (e, p) in enumerate(coord_errs):
+            if not e <= p + ATOL:
+                failures.append(f"{tag} coord {c}: kernel {e:.3g} from float64, plain f32 {p:.3g}")
+        if not (m_err <= m_plain + ATOL / gamma and den_rel <= den_plain + ATOL / gamma):
+            failures.append(f"{tag} mden from float64: m {m_err:.3g} (plain {m_plain:.3g}), "
+                            f"den rel {den_rel:.3g} (plain {den_plain:.3g})")
+        worst = max(worst, *errs.values())
         if gamma == GAMMAS[0]:
             ms = cuda_ms(torch, lambda: RC.raster_fwd_cuda(*args), 20)
             plain_ms = cuda_ms(torch, lambda: RC.raster_fwd_plain(*args), 2)
@@ -234,6 +244,8 @@ def phase_k1(torch, device, scene, out: dict) -> torch.Tensor:
             log(f"K1 time: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
                 f"{bound_ms:.4f} ms ({bound_by}; {pairs / 1e6:.1f}M face-pixel pairs, "
                 f"{coeffs.shape[1]} padded faces)")
+    if failures:
+        fail("; ".join(failures))
     out.update(name="raster_fwd", route="cuda", source="hocon_torch/csrc/raster_fwd.cu",
                replaces="hocon/render/raster_pallas.py:304", max_abs_err=worst, ms=ms,
                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
@@ -258,7 +270,7 @@ def phase_k3(torch, device, coords, images, out: dict) -> None:
     xy[:, 0, :8] = torch.tensor([[-40.0, 3.0], [RES + 40.0, 3.0], [5.0, -1e4], [7.5, RES + 9.0],
                                  [0.5, 0.5], [RES - 0.5, RES - 0.5], [3.0, 4.0], [1e6, 1e6]],
                                 device=device)
-    got = SC.sample_fwd_cuda(img, xy)
+    got = SC.sample_fwd(img, xy)  # the dispatcher the slice calls
     want = SC.sample_fwd_plain(img, xy)
     err = float((got - want).abs().max())
     if not err <= SAMPLE_ATOL:

@@ -40,6 +40,7 @@ _BIG_NEG = -1e4  # inert-face edge constant; its square stays in f32 range
 # Fixed-reference softmax when 1 / gamma <= this: every weight exp(l) and
 # the background weight exp(-1 / gamma) stay inside f32 range.
 FIXED_M_MAX_INV_GAMMA = 60.0
+KERNEL_ATTRS = 2  # attribute channels the CUDA kernel is built for
 
 
 class RasterConfig(NamedTuple):
@@ -306,8 +307,6 @@ def _kernel_lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.hocon_raster_fwd.argtypes = [p] * 7 + [i] * 8 + [f] * 4 + [i, p]
     lib.hocon_raster_fwd.restype = i
-    lib.hocon_raster_fwd_max_attrs.argtypes = []
-    lib.hocon_raster_fwd_max_attrs.restype = i
     return lib
 
 
@@ -317,9 +316,11 @@ def raster_fwd_cuda(coeffs, bounds, krange, image_size, sigma, gamma, config):
     n_user = r3 // 3 - N_GEOM_ROWS
     hp, wp = padded_size(image_size)
     nc = bounds.shape[1]
-    lib = _kernel_lib()
-    if n_user > lib.hocon_raster_fwd_max_attrs():
-        raise ValueError(f"raster_fwd kernel takes at most 8 attrs, got {n_user}")
+    if n_user != KERNEL_ATTRS:
+        raise ValueError(
+            f"raster_fwd kernel is built for {KERNEL_ATTRS} attribute channels "
+            f"(the warp's reference-pixel coordinates), got {n_user}"
+        )
     if fp != nc * config.face_chunk:
         raise ValueError(f"{fp} padded faces is not {nc} chunks of {config.face_chunk}")
     if config.face_chunk * r3 * 4 > 48 * 1024:
@@ -339,7 +340,7 @@ def raster_fwd_cuda(coeffs, bounds, krange, image_size, sigma, gamma, config):
     vis = torch.empty((b, hp, wp), **opts)
     mden = torch.empty((b, 2, hp, wp), **opts)
     stream = torch.cuda.current_stream(coeffs.device).cuda_stream
-    err = lib.hocon_raster_fwd(
+    err = _kernel_lib().hocon_raster_fwd(
         krange.data_ptr(), bounds.data_ptr(), coeffs.data_ptr(),
         sil.data_ptr(), attr.data_ptr(), vis.data_ptr(), mden.data_ptr(),
         b, hp, wp, nc, fp, n_user, config.face_chunk,
