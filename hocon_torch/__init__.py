@@ -6,9 +6,10 @@ counterpart is easy to find:
 
 - ``hocon_torch.geometry`` — rotations, camera projection, the MANO layer.
 - ``hocon_torch.models``   — ResNet trunk, regression heads, HOCNet, losses.
-- ``hocon_torch.render``   — soft rasterizer (kernel K1), bilinear sampler
-  (kernel K3), SSIM and the photometric-consistency warp.
-- ``hocon_torch.train``    — the warp loss and eval forward passes.
+- ``hocon_torch.render``   — soft rasterizer (kernels K1, K2), bilinear
+  sampler (kernels K3, K4), SSIM and the photometric-consistency warp.
+- ``hocon_torch.train``    — the warp and supervised train steps, the
+  optimizer, and the eval forward pass.
 - ``hocon_torch.data``     — the meshes the main path renders.
 - ``hocon_torch.utils``    — the Flax weight bridge and the CUDA build.
 

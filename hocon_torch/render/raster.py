@@ -10,8 +10,9 @@ Port of ``hocon/render/raster.py``. Per triangle f and pixel q:
     vis(q)   = 1 - background softmax share
 
 Every per-pixel quantity is affine in (x, y), so each face carries rows of
-plane coefficients (``FacePlanes``) that kernel K1
-(``hocon_torch.render.raster_cuda``) evaluates per pixel.
+plane coefficients (``FacePlanes``) that kernels K1 and K2
+(``hocon_torch.render.raster_cuda``) evaluate per pixel, or that the
+unculled streaming ``rasterize_planes_xla`` evaluates in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 _DEGENERATE_EPS = 1e-12
 _AREA_EPS = 1e-6  # faces with |2 * area| at or below this (px^2) are culled
@@ -149,6 +152,123 @@ def face_planes(
     return FacePlanes(rows=torch.cat(rows, dim=-2), valid=valid)
 
 
+def _pixel_grid(h: int, w: int, dtype, device) -> torch.Tensor:
+    """Homogeneous pixel-centre coordinates (x, y, 1), shape (3, H*W)."""
+    ys = (torch.arange(h, dtype=dtype, device=device) + 0.5)[:, None].expand(h, w)
+    xs = (torch.arange(w, dtype=dtype, device=device) + 0.5)[None, :].expand(h, w)
+    x, y = xs.reshape(-1), ys.reshape(-1)
+    return torch.stack([x, y, torch.ones_like(x)], dim=0)
+
+
+def _aggregate_chunk(planes_chunk, valid_chunk, pix, sigma, gamma):
+    """One face chunk against one pixel block.
+
+    planes_chunk (B, FC, R, 3); valid_chunk (B, FC); pix (3, P). Returns
+    log_neg (B, P) = sum_f log(1 - p_f), the softmax logits
+    l (B, FC, P) = log(p_f) - zbar_f / gamma, and the interpolated
+    [attrs; zbar] (B, FC, C+1, P).
+    """
+    vals = torch.einsum("bfrk,kp->bfrp", planes_chunk, pix)  # (B, FC, R, P)
+    s = vals[:, :, 0:3]  # signed distance to the edge lines
+    u = vals[:, :, 3:6]  # along-edge coordinate
+    length = vals[:, :, 6:9]  # constant edge lengths
+    overhang = torch.clamp(torch.maximum(-u, u - length), min=0.0)
+    dist2_out = torch.amin(s * s + overhang * overhang, dim=2)  # (B, FC, P)
+    d_in = torch.amin(s, dim=2)
+    signed_sq = torch.where(d_in > 0, d_in * d_in, -dist2_out)
+    signed_sq = torch.where(valid_chunk[..., None] > 0, signed_sq, -1e18)
+    logits = signed_sq / (sigma * sigma)
+    # One softplus serves both: log(sigmoid(x)) = -sp, log(1 - sigmoid(x))
+    # = -(x + sp), with sp = softplus(-x).
+    sp = F.softplus(-logits)
+    log_neg = -(logits + sp)
+    zbar = torch.clamp(vals[:, :, 9], 0.0, 1.0)  # extrapolation clamped
+    l = -sp - zbar / gamma
+    interp = torch.cat([vals[:, :, 10:], zbar[:, :, None]], dim=2)
+    return log_neg.sum(dim=1), l, interp
+
+
+def _scan_step(log_neg, m, num, den, planes_chunk, valid_chunk, pix, sigma, gamma):
+    """One face chunk of the streaming max-renormalized softmax."""
+    ln, l, interp = _aggregate_chunk(planes_chunk, valid_chunk, pix, sigma, gamma)
+    m_new = torch.maximum(m, torch.amax(l, dim=1))
+    scale = torch.exp(m - m_new)
+    w = torch.exp(l - m_new[:, None])  # (B, FC, P)
+    num = num * scale[:, None] + torch.einsum("bfp,bfcp->bcp", w, interp)
+    den = den * scale + w.sum(dim=1)
+    return log_neg + ln, m_new, num, den
+
+
+def rasterize_planes_xla(
+    planes: FacePlanes,
+    image_size: tuple[int, int],
+    sigma: float,
+    gamma: float,
+    face_chunk: int = 128,
+    pixel_rows: int = 16,
+) -> RasterOutput:
+    """Streaming, unculled rasterization of face planes in plain PyTorch.
+
+    Port of ``hocon/render/raster.py:rasterize_planes_xla``: for each block
+    of ``pixel_rows`` rows, a loop over face chunks carries the
+    silhouette's log sum and a max-renormalized softmax. Autograd
+    differentiates it; each chunk step is recomputed in the backward
+    (``torch.utils.checkpoint``, where the reference has ``jax.checkpoint``),
+    or the backward would hold the full face x pixel tensors.
+    """
+    rows, valid = planes.rows, planes.valid
+    b, f, r, _ = rows.shape
+    n_attr = r - (N_GEOM_ROWS - 1)  # zbar + C user attrs
+    h, w = image_size
+    dtype, dev = rows.dtype, rows.device
+
+    f_pad = (-f) % face_chunk  # padded faces are invalid: no-ops
+    if f_pad:
+        rows = F.pad(rows, (0, 0, 0, 0, 0, f_pad))
+        valid = F.pad(valid, (0, f_pad))
+    n_chunks = rows.shape[1] // face_chunk
+    rows_c = rows.reshape(b, n_chunks, face_chunk, r, 3)
+    valid_c = valid.reshape(b, n_chunks, face_chunk)
+
+    h_pad = (-h) % pixel_rows
+    grid = _pixel_grid(h + h_pad, w, dtype, dev).reshape(3, -1, pixel_rows * w)
+    l_bg = -1.0 / gamma  # background entry: p = 1, zbar = 1, attrs 0
+
+    log_negs, aggs, viss = [], [], []
+    for blk in range(grid.shape[1]):
+        pix = grid[:, blk]
+        p_sz = pix.shape[-1]
+        num = torch.zeros((b, n_attr, p_sz), dtype=dtype, device=dev)
+        num[:, -1] = 1.0
+        carry = (
+            torch.zeros((b, p_sz), dtype=dtype, device=dev),
+            torch.full((b, p_sz), l_bg, dtype=dtype, device=dev),
+            num,
+            torch.ones((b, p_sz), dtype=dtype, device=dev),
+        )
+        for k in range(n_chunks):
+            carry = checkpoint(
+                _scan_step, *carry, rows_c[:, k], valid_c[:, k], pix, sigma, gamma,
+                use_reentrant=False,
+            )
+        log_neg, m, num, den = carry
+        log_negs.append(log_neg)
+        viss.append(1.0 - torch.exp(l_bg - m) / den)
+        aggs.append(num / den[:, None])
+    log_neg = torch.cat(log_negs, dim=1).reshape(b, h + h_pad, w)[:, :h]
+    vis = torch.cat(viss, dim=1).reshape(b, h + h_pad, w)[:, :h]
+    agg = torch.cat(aggs, dim=2).reshape(b, n_attr, h + h_pad, w)[:, :, :h]
+    return RasterOutput(
+        sil=1.0 - torch.exp(log_neg),
+        attr=agg[:, :-1].permute(0, 2, 3, 1),
+        depth=agg[:, -1],
+        vis=vis,
+    )
+
+
+BACKENDS = ("auto", "xla", "pallas")
+
+
 def soft_rasterize(
     verts_pix: torch.Tensor,
     verts_z: torch.Tensor,
@@ -158,26 +278,34 @@ def soft_rasterize(
     sigma: float = 1.0,
     gamma: float = 1.0 / 40.0,
     backend: str = "auto",
+    face_chunk: int = 128,
     backface_cull: bool = False,
 ) -> RasterOutput:
     """Soft-rasterize a batch of meshes (the reference's public entry).
 
     verts_pix (B, V, 2) pixels; verts_z (B, V) camera depth; faces (F, 3) or
-    (B, F, 3); attrs optional (B, V, C). ``backend="auto"`` is the
-    y-sorted, chunk-culled path of kernel K1 (its plain PyTorch version for
-    CPU tensors); the reference's unculled "xla" path is not ported yet.
+    (B, F, 3); attrs optional (B, V, C). ``backend="auto"`` (or
+    ``"pallas"``, the reference's name for its kernel path) is the
+    y-sorted, chunk-culled path of kernels K1 / K2 (their plain PyTorch
+    versions for CPU tensors); ``"xla"`` is the unculled streaming
+    ``rasterize_planes_xla`` in chunks of ``face_chunk`` faces, which
+    autograd differentiates (the reference's default off the TPU).
     """
-    if backend != "auto":
-        raise ValueError(f"soft_rasterize backend {backend!r}: only 'auto' is ported")
+    if backend not in BACKENDS:
+        raise ValueError(f"soft_rasterize backend {backend!r}: expected one of {BACKENDS}")
+    if attrs is None:
+        attrs = verts_pix.new_zeros(verts_pix.shape[:2] + (0,))
+    zbar = normalize_depth(verts_z)
+    if backend == "xla":
+        planes = face_planes(verts_pix, zbar, faces, attrs, backface_cull=backface_cull)
+        return rasterize_planes_xla(planes, image_size, sigma, gamma, face_chunk=face_chunk)
+
     from hocon_torch.render.raster_cuda import (
         default_config,
         rasterize_planes,
         sort_faces_by_y,
     )
 
-    if attrs is None:
-        attrs = verts_pix.new_zeros(verts_pix.shape[:2] + (0,))
-    zbar = normalize_depth(verts_z)
     # Sort the integer faces by screen y first, so the plane rows are built
     # already in kernel order and nothing differentiable is permuted.
     faces_sorted, face_bbox = sort_faces_by_y(

@@ -1,16 +1,22 @@
-"""Kernel K1: the soft-rasterizer forward, its schedule and its plain version.
+"""Kernels K1 and K2: the soft-rasterizer forward and backward, their
+schedule and their plain versions.
 
-Port of ``hocon/render/raster_pallas.py`` (forward half). The integer face
-indices are sorted by screen y (``sort_faces_by_y``), the plane rows are
-packed into per-face coefficient rows with inert padding and per-chunk
-margin bounds (``pack_sorted_planes``), each 8-row block gets the range of
-chunks that can reach it (``chunk_ranges``), and ``raster_fwd`` renders.
+Port of ``hocon/render/raster_pallas.py``. The integer face indices are
+sorted by screen y (``sort_faces_by_y``), the plane rows are packed into
+per-face coefficient rows with inert padding and per-chunk margin bounds
+(``pack_sorted_planes``), each 8-row block gets the range of chunks that
+can reach it (``chunk_ranges``), ``raster_fwd`` renders and ``raster_bwd``
+chains the output cotangents back to the coefficients. ``RasterizeSorted``
+pairs the two as one ``torch.autograd.Function``, as the reference's
+``custom_vjp`` does.
 
-``raster_fwd`` launches ``hocon_torch/csrc/raster_fwd.cu`` for CUDA tensors
-and runs ``raster_fwd_plain`` for CPU tensors; its launch count is
-``raster_fwd.launches``. The kernel replaces
-``hocon/render/raster_pallas.py:_raster_kernel``; its source note says what
-bounds it on the card and how its design answers that.
+``raster_fwd`` / ``raster_bwd`` launch ``hocon_torch/csrc/raster_fwd.cu`` /
+``raster_bwd.cu`` for CUDA tensors and run ``raster_fwd_plain`` /
+``raster_bwd_plain`` for CPU tensors; their launch counts are
+``raster_fwd.launches`` and ``raster_bwd.launches``. The kernels replace
+``hocon/render/raster_pallas.py:_raster_kernel`` and ``_raster_bwd_kernel``;
+their source notes say what bounds them on the card and how their designs
+answer that.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from hocon_torch.render.raster import (
     N_GEOM_ROWS,
@@ -40,7 +47,7 @@ _BIG_NEG = -1e4  # inert-face edge constant; its square stays in f32 range
 # Fixed-reference softmax when 1 / gamma <= this: every weight exp(l) and
 # the background weight exp(-1 / gamma) stay inside f32 range.
 FIXED_M_MAX_INV_GAMMA = 60.0
-KERNEL_ATTRS = 2  # attribute channels the CUDA kernel is built for
+KERNEL_ATTRS = 2  # attribute channels the CUDA kernels are built for
 
 
 class RasterConfig(NamedTuple):
@@ -183,6 +190,51 @@ def cell_hits(bounds, krange, hp, wp, xb):
     return (hit_y & in_range)[..., :, None] & hit_x[..., None, :]
 
 
+class _ChunkCells(NamedTuple):
+    """One chunk of the plain versions and the pixels K1 evaluates it at."""
+
+    k: int
+    ys: slice  # rows of the rectangle around its cells
+    xs: slice  # columns of that rectangle
+    take: torch.Tensor  # (B, rows, cols): pixels in cells that evaluate it
+    a: torch.Tensor  # its plane rows (B, FC, R, 3)
+    x: torch.Tensor  # pixel-centre x (1, 1, 1, cols)
+    y: torch.Tensor  # pixel-centre y (1, 1, rows, 1)
+
+    def row(self, i: int) -> torch.Tensor:
+        """Plane row i at the rectangle's pixels, (B, FC, rows, cols)."""
+        a = self.a
+        return a[:, :, i, 0, None, None] * self.x + (
+            a[:, :, i, 1, None, None] * self.y + a[:, :, i, 2, None, None]
+        )
+
+
+def _chunk_cells(coeffs, bounds, krange, image_size, config):
+    """Yield a ``_ChunkCells`` for every chunk that some cell (8-row block x
+    lane block) evaluates, in chunk order, in the dtype of ``coeffs``."""
+    b, _, r3 = coeffs.shape
+    hp, wp = padded_size(image_size)
+    xb = lane_block(wp, config.lane_block)
+    fc = config.face_chunk
+    xs_all = torch.arange(wp, device=coeffs.device, dtype=coeffs.dtype) + 0.5
+    ys_all = torch.arange(hp, device=coeffs.device, dtype=coeffs.dtype) + 0.5
+    hits = cell_hits(bounds.float(), krange, hp, wp, xb)  # (B, NC, NYB, NXB)
+    hits_host = hits.any(dim=0).cpu()  # which cells any batch item needs
+    for k in range(bounds.shape[1]):
+        cells = hits_host[k].nonzero()
+        if len(cells) == 0:
+            continue
+        y_lo, x_lo = cells.min(dim=0).values.tolist()
+        y_hi, x_hi = (cells.max(dim=0).values + 1).tolist()
+        ys = slice(y_lo * ROW_BLOCK, y_hi * ROW_BLOCK)
+        xs = slice(x_lo * xb, x_hi * xb)
+        take = hits[:, k, y_lo:y_hi, x_lo:x_hi]
+        take = take.repeat_interleave(ROW_BLOCK, 1).repeat_interleave(xb, 2)
+        a = coeffs[:, k * fc:(k + 1) * fc].reshape(b, fc, r3 // 3, 3)
+        yield _ChunkCells(k, ys, xs, take, a, xs_all[xs][None, None, None, :],
+                          ys_all[ys][None, None, :, None])
+
+
 def raster_fwd_plain(
     coeffs: torch.Tensor,
     bounds: torch.Tensor,
@@ -199,12 +251,9 @@ def raster_fwd_plain(
     reference kernel's per-chunk arithmetic. Returns the padded
     (sil (B,Hp,Wp), attr (B,C+1,Hp,Wp), vis (B,Hp,Wp), mden (B,2,Hp,Wp)).
     """
-    b, fp, r3 = coeffs.shape
-    r = r3 // 3
-    n_user = r - N_GEOM_ROWS
+    b, _, r3 = coeffs.shape
+    n_user = r3 // 3 - N_GEOM_ROWS
     hp, wp = padded_size(image_size)
-    xb = lane_block(wp, config.lane_block)
-    fc = config.face_chunk
     dev, f32 = coeffs.device, coeffs.dtype  # f32 on the main path
     fixed_m = (1.0 / gamma) <= FIXED_M_MAX_INV_GAMMA
     inv_sigma_sq = 1.0 / (sigma * sigma)
@@ -224,31 +273,8 @@ def raster_fwd_plain(
         numz = den.clone()
     num = torch.zeros((b, n_user, hp, wp), device=dev, dtype=f32)
 
-    xs_all = torch.arange(wp, device=dev, dtype=f32) + 0.5
-    ys_all = torch.arange(hp, device=dev, dtype=f32) + 0.5
-    bounds = bounds.float()
-    hits = cell_hits(bounds, krange, hp, wp, xb)  # (B, NC, NYB, NXB)
-    hits_host = hits.any(dim=0).cpu()  # which cells any batch item needs
-    for k in range(bounds.shape[1]):
-        cells = hits_host[k].nonzero()
-        if len(cells) == 0:
-            continue
-        y_lo, x_lo = cells.min(dim=0).values.tolist()
-        y_hi, x_hi = (cells.max(dim=0).values + 1).tolist()
-        ys = slice(y_lo * ROW_BLOCK, y_hi * ROW_BLOCK)
-        xs = slice(x_lo * xb, x_hi * xb)
-        take = hits[:, k, y_lo:y_hi, x_lo:x_hi]
-        take = take.repeat_interleave(ROW_BLOCK, 1).repeat_interleave(xb, 2)
-
-        a = coeffs[:, k * fc:(k + 1) * fc].reshape(b, fc, r, 3)
-        x = xs_all[xs][None, None, None, :]
-        y = ys_all[ys][None, None, :, None]
-
-        def row(i):
-            return a[:, :, i, 0, None, None] * x + (
-                a[:, :, i, 1, None, None] * y + a[:, :, i, 2, None, None]
-            )  # (B, FC, rows, cols)
-
+    for cell in _chunk_cells(coeffs, bounds, krange, image_size, config):
+        ys, xs, take, a, row = cell.ys, cell.xs, cell.take, cell.a, cell.row
         s = [row(0), row(1), row(2)]
         d_in = torch.minimum(torch.minimum(s[0], s[1]), s[2])
         dist2 = None
@@ -378,6 +404,255 @@ def raster_fwd(
 raster_fwd.launches = 0
 
 
+def _rcp123(cnt: torch.Tensor) -> torch.Tensor:
+    """1 / cnt for tie counts that are exactly 1, 2 or 3."""
+    return torch.where(cnt == 1.0, 1.0, torch.where(cnt == 2.0, 0.5, 1.0 / 3.0)).to(cnt.dtype)
+
+
+def raster_bwd_plain(
+    coeffs: torch.Tensor,
+    bounds: torch.Tensor,
+    krange: torch.Tensor,
+    sil: torch.Tensor,
+    attr: torch.Tensor,
+    vis: torch.Tensor,
+    mden: torch.Tensor,
+    gsil: torch.Tensor,
+    gattr: torch.Tensor,
+    gvis: torch.Tensor,
+    image_size: tuple[int, int],
+    sigma: float,
+    gamma: float,
+    config: RasterConfig,
+) -> torch.Tensor:
+    """K2's plain PyTorch version, at the kernel's interface.
+
+    Inputs are K1's inputs, its four padded outputs and the padded
+    cotangents gsil / gvis (B, Hp, Wp) and gattr (B, C+1, Hp, Wp). Loops over
+    chunks; a chunk contributes from exactly the cells (8-row block x lane
+    block) that K1 evaluated it in, with ``_raster_bwd_kernel``'s per-(face,
+    pixel) arithmetic term for term: the recomputed forward, the softmax
+    competition, the silhouette, the strict 0 < zraw < 1 clip mask, the
+    1/2/3 tie split of the minima and the overhang branches. Each row r of
+    a face gets (sum dval * x, sum dval * y, sum dval) over those pixels.
+    Returns dcoeffs (B, Fp, 3R) in the dtype of ``coeffs``.
+    """
+    b, fp, r3 = coeffs.shape
+    r = r3 // 3
+    n_user = r - N_GEOM_ROWS
+    fc = config.face_chunk
+    dev, dt = coeffs.device, coeffs.dtype
+    inv_sigma_sq = 1.0 / (sigma * sigma)
+    inv_gamma = 1.0 / gamma
+
+    # Per-pixel state shared by all faces, as the kernel derives it.
+    gs1 = gsil * (1.0 - sil)
+    m = mden[:, 0]
+    inv_den = 1.0 / mden[:, 1]
+    g_z, out_z = gattr[:, n_user], attr[:, n_user]
+    gv = gvis * (1.0 - vis)
+
+    dcoeffs = torch.zeros((b, fp, r, 3), device=dev, dtype=dt)
+    for cell in _chunk_cells(coeffs, bounds, krange, image_size, config):
+        ys, xs, a, row, x, y = cell.ys, cell.xs, cell.a, cell.row, cell.x, cell.y
+        take = cell.take[:, None]
+
+        def px(t):  # per-pixel state of the cells, broadcast over faces
+            return t[:, None, ys, xs]
+
+        s = [row(0), row(1), row(2)]
+        d_in = torch.minimum(torch.minimum(s[0], s[1]), s[2])
+        us, lens, ovs, c2s = [], [], [], []
+        for e in range(3):
+            u = row(3 + e)
+            length = a[:, :, 6 + e, 2, None, None]
+            ov = torch.clamp(torch.maximum(-u, u - length), min=0.0)
+            us.append(u)
+            lens.append(length)
+            ovs.append(ov)
+            c2s.append(s[e] * s[e] + ov * ov)
+        dist2 = torch.minimum(torch.minimum(c2s[0], c2s[1]), c2s[2])
+        inside = d_in > 0
+        signed_sq = torch.where(inside, d_in * d_in, -dist2)
+        logits = signed_sq * inv_sigma_sq
+        zraw = row(9)
+        z = torch.clamp(zraw, 0.0, 1.0)
+        sig = torch.sigmoid(logits)
+        # exp(l - m) as sig * exp(-z / gamma - m), its exponent clamped at 80
+        # (a face >= 8.9 sigma away, far beyond the culling cutoff).
+        e_w = torch.clamp(-z * inv_gamma - px(m), max=80.0)
+        what = sig * torch.exp(e_w) * px(inv_den)
+
+        grads = {}
+        ssum = px(g_z) * (z - px(out_z)) + px(gv)
+        for c in range(n_user):
+            g_c = px(gattr[:, c])
+            ssum = ssum + g_c * (row(10 + c) - px(attr[:, c]))
+            grads[10 + c] = what * g_c  # direct attribute-row gradient
+        dl = what * ssum
+        dx = px(gs1) * sig + dl * (1.0 - sig)
+        clip_mask = ((zraw > 0.0) & (zraw < 1.0)).to(dt)
+        grads[9] = (what * px(g_z) - dl * inv_gamma) * clip_mask
+
+        dss = dx * inv_sigma_sq  # dL / d(signed_sq)
+        insf = inside.to(dt)
+        in_masks = [(sk == d_in).to(dt) for sk in s]
+        o_masks = [(c2 == dist2).to(dt) for c2 in c2s]
+        in_sel = _rcp123(in_masks[0] + in_masks[1] + in_masks[2]) * insf
+        o_sel = _rcp123(o_masks[0] + o_masks[1] + o_masks[2]) * (1.0 - insf)
+        for e in range(3):
+            sel_in = in_masks[e] * in_sel
+            sel_out = o_masks[e] * o_sel
+            grads[e] = (2.0 * d_in * sel_in - 2.0 * s[e] * sel_out) * dss
+            a_side = -us[e]
+            b_side = us[e] - lens[e]
+            take_b = ((b_side >= a_side) & (b_side > 0)).to(dt)
+            take_a = ((a_side > b_side) & (a_side > 0)).to(dt)
+            dov = -2.0 * ovs[e] * sel_out * dss  # dL / d(overhang)
+            grads[3 + e] = dov * (take_b - take_a)
+            grads[6 + e] = dov * (-take_b)
+
+        out = dcoeffs[:, cell.k * fc:(cell.k + 1) * fc]
+        for i, dval in grads.items():
+            dval = torch.where(take, dval, 0.0)
+            out[:, :, i, 0] = (dval * x).sum(dim=(2, 3))
+            out[:, :, i, 1] = (dval * y).sum(dim=(2, 3))
+            out[:, :, i, 2] = dval.sum(dim=(2, 3))
+    return dcoeffs.reshape(b, fp, r3)
+
+
+@functools.cache
+def _bwd_kernel_lib() -> ctypes.CDLL:
+    from hocon_torch.utils import cuda_build
+
+    lib = cuda_build.load("raster_bwd")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.hocon_raster_bwd.argtypes = [p] * 11 + [i] * 7 + [f] * 2 + [p]
+    lib.hocon_raster_bwd.restype = i
+    return lib
+
+
+def raster_bwd_cuda(coeffs, bounds, krange, sil, attr, vis, mden, gsil, gattr, gvis,
+                    image_size, sigma, gamma, config):
+    """Launch K2 on CUDA tensors (the interface of ``raster_bwd_plain``)."""
+    b, fp, r3 = coeffs.shape
+    n_user = r3 // 3 - N_GEOM_ROWS
+    hp, wp = padded_size(image_size)
+    nc = bounds.shape[1]
+    if n_user != KERNEL_ATTRS:
+        raise ValueError(
+            f"raster_bwd kernel is built for {KERNEL_ATTRS} attribute channels "
+            f"(the warp's reference-pixel coordinates), got {n_user}"
+        )
+    if config.face_chunk != FACE_CHUNK or fp != nc * FACE_CHUNK:
+        raise ValueError(
+            f"raster_bwd kernel is built for chunks of {FACE_CHUNK} faces, got "
+            f"{fp} padded faces in {nc} chunks of {config.face_chunk}"
+        )
+    if tuple(krange.shape) != (b, hp // ROW_BLOCK, 2):
+        raise ValueError(f"krange shape {tuple(krange.shape)} for {b} x {hp} rows")
+    shapes = {
+        "coeffs": (coeffs, torch.float32, (b, fp, r3)),
+        "bounds": (bounds, torch.float32, (b, nc, 4)),
+        "krange": (krange, torch.int32, (b, hp // ROW_BLOCK, 2)),
+        "sil": (sil, torch.float32, (b, hp, wp)),
+        "attr": (attr, torch.float32, (b, n_user + 1, hp, wp)),
+        "vis": (vis, torch.float32, (b, hp, wp)),
+        "mden": (mden, torch.float32, (b, 2, hp, wp)),
+        "gsil": (gsil, torch.float32, (b, hp, wp)),
+        "gattr": (gattr, torch.float32, (b, n_user + 1, hp, wp)),
+        "gvis": (gvis, torch.float32, (b, hp, wp)),
+    }
+    for name, (t, dtype, shape) in shapes.items():
+        if (t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous()
+                or t.device != coeffs.device):
+            raise ValueError(
+                f"raster_bwd: {name} must be a contiguous {dtype} {shape} on "
+                f"{coeffs.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+    dcoeffs = torch.empty((b, fp, r3), device=coeffs.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(coeffs.device).cuda_stream
+    err = _bwd_kernel_lib().hocon_raster_bwd(
+        krange.data_ptr(), bounds.data_ptr(), coeffs.data_ptr(),
+        sil.data_ptr(), attr.data_ptr(), vis.data_ptr(), mden.data_ptr(),
+        gsil.data_ptr(), gattr.data_ptr(), gvis.data_ptr(), dcoeffs.data_ptr(),
+        b, hp, wp, nc, fp, n_user, lane_block(wp, config.lane_block),
+        1.0 / (sigma * sigma), 1.0 / gamma, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"raster_bwd kernel launch failed: cudaError {err}")
+    raster_bwd.launches += 1
+    return dcoeffs
+
+
+def raster_bwd(
+    coeffs: torch.Tensor,
+    bounds: torch.Tensor,
+    sil: torch.Tensor,
+    attr: torch.Tensor,
+    vis: torch.Tensor,
+    mden: torch.Tensor,
+    gsil: torch.Tensor,
+    gattr: torch.Tensor,
+    gvis: torch.Tensor,
+    image_size: tuple[int, int],
+    sigma: float,
+    gamma: float,
+    config: RasterConfig | None = None,
+) -> torch.Tensor:
+    """K2: dL/dcoeffs (B, Fp, 3R) from K1's padded outputs and cotangents.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors run
+    ``raster_bwd_plain``. ``raster_bwd.launches`` counts kernel launches.
+    """
+    config = config or default_config()
+    hp, _ = padded_size(image_size)
+    krange = chunk_ranges(bounds, hp)
+    args = (coeffs, bounds, krange, sil, attr, vis, mden, gsil, gattr, gvis,
+            image_size, sigma, gamma, config)
+    if coeffs.is_cuda:
+        return raster_bwd_cuda(*args)
+    return raster_bwd_plain(*args)
+
+
+raster_bwd.launches = 0
+
+
+class RasterizeSorted(torch.autograd.Function):
+    """K1 forward, K2 backward: the reference's ``_rasterize_sorted``.
+
+    ``forward(coeffs, bounds, image_size, sigma, gamma, config)`` returns
+    the cropped (sil (B,H,W), attr (B,C+1,H,W), vis (B,H,W)); the backward
+    gives dcoeffs and nothing for the (scheduling-only) bounds. Outputs a
+    loss does not use reach the backward as zeros, as in the reference.
+    """
+
+    @staticmethod
+    def forward(ctx, coeffs, bounds, image_size, sigma, gamma, config):
+        sil, attr, vis, mden = raster_fwd(coeffs, bounds, image_size, sigma, gamma, config)
+        ctx.save_for_backward(coeffs, bounds, sil, attr, vis, mden)
+        ctx.args = (image_size, sigma, gamma, config)
+        h, w = image_size
+        return sil[:, :h, :w], attr[:, :, :h, :w], vis[:, :h, :w]
+
+    @staticmethod
+    def backward(ctx, gsil, gattr, gvis):
+        coeffs, bounds, sil, attr, vis, mden = ctx.saved_tensors
+        image_size, sigma, gamma, config = ctx.args
+        h, w = image_size
+        hp, wp = sil.shape[1:]
+        pad = (0, wp - w, 0, hp - h)  # zero cotangents on the padding
+
+        def padded(g):
+            return F.pad(g.float(), pad).contiguous()
+
+        dcoeffs = raster_bwd(
+            coeffs, bounds, sil, attr, vis, mden, padded(gsil), padded(gattr),
+            padded(gvis), image_size, sigma, gamma, config,
+        )
+        return dcoeffs, None, None, None, None, None
+
+
 def rasterize_planes(
     planes: FacePlanes,
     face_bbox: torch.Tensor,
@@ -387,16 +662,14 @@ def rasterize_planes(
     config: RasterConfig | None = None,
 ) -> RasterOutput:
     """Rasterize y-sorted face planes (with their (B, F, 4) bboxes) through
-    K1 and crop the padding."""
+    K1 (forward) and K2 (backward)."""
     config = config or default_config()
     n_attr = planes.rows.shape[2] - (N_GEOM_ROWS - 1)  # user attrs + depth
     coeffs, bounds = pack_sorted_planes(planes, face_bbox, sigma, config.face_chunk)
-    h, w = image_size
-    sil, attr, vis, _ = raster_fwd(coeffs, bounds, image_size, sigma, gamma, config)
-    attr = attr[:, :, :h, :w]
+    sil, attr, vis = RasterizeSorted.apply(coeffs, bounds, image_size, sigma, gamma, config)
     return RasterOutput(
-        sil=sil[:, :h, :w],
+        sil=sil,
         attr=attr[:, : n_attr - 1].permute(0, 2, 3, 1),
         depth=attr[:, n_attr - 1],
-        vis=vis[:, :h, :w],
+        vis=vis,
     )

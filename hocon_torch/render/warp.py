@@ -1,8 +1,8 @@
 """Frame-pair photometric-consistency warp.
 
-Port of ``hocon/render/warp.py`` (forward): render the target view carrying
-reference-frame pixel coordinates (K1), sample the reference image there
-(K3), and compare with masked SSIM + L1.
+Port of ``hocon/render/warp.py``: render the target view carrying
+reference-frame pixel coordinates (K1, backward K2), sample the reference
+image there (K3, backward K4), and compare with masked SSIM + L1.
 """
 
 from __future__ import annotations
@@ -13,17 +13,25 @@ import torch
 
 from hocon_torch.geometry.project import persp_project
 from hocon_torch.render.raster import RasterOutput, soft_rasterize
-from hocon_torch.render.sample_cuda import sample_fwd
+from hocon_torch.render.sample_cuda import BilinearSample, sample_fwd_plain
 from hocon_torch.render.ssim import ssim_loss
 
 
-def bilinear_sample(image: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+def bilinear_sample(
+    image: torch.Tensor, coords: torch.Tensor, image_grad: bool = False
+) -> torch.Tensor:
     """Sample ``image`` (B, H, W, C) at pixel ``coords`` (B, Hq, Wq, 2).
 
-    The image is data (``.detach()``), as in the reference's default
-    contract; the border clamp is that of ``bilinear_sample_gather``.
+    By default the image is data, as in the reference's contract: the
+    sample goes through K3 and its coordinate gradient through K4. With
+    ``image_grad=True`` it goes through the gather formulation, which
+    autograd differentiates in the image too (the reference's non-TPU
+    route; plain PyTorch on every device). The border clamp is that of
+    ``bilinear_sample_gather``.
     """
-    return sample_fwd(image.detach().float().contiguous(), coords.float().contiguous())
+    if image_grad:
+        return sample_fwd_plain(image.float(), coords.float())
+    return BilinearSample.apply(image.detach().float().contiguous(), coords.float().contiguous())
 
 
 class WarpOutput(NamedTuple):

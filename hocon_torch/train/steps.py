@@ -1,14 +1,21 @@
-"""Forward passes of the train and eval steps.
+"""Train and eval steps.
 
 Port of ``hocon/train/steps.py``: ``warp_loss`` is the body of
 ``make_warp_train_step``'s ``loss_fn`` (one HOCNet pass over [ref; tgt],
-masked supervised losses, the photometric warp through kernels K1 and K3),
-with the same arguments and term names; ``eval_step`` is the forward of
+masked supervised losses, the photometric warp through kernels K1 / K3,
+whose backward runs K2 / K4), with the same arguments and term names;
+``make_warp_train_step`` and ``make_train_step`` add the backward and the
+update (``hocon_torch.train.state``); ``eval_step`` is the forward of
 ``make_eval_step``. Batches are dicts in the reference's layout (NHWC
 images, uint8 or normalized float), as numpy arrays or tensors.
+
+Batch norm stays frozen on its running statistics (the reference's
+default ``freeze_batchnorm=True``); its scale and bias train.
 """
 
 from __future__ import annotations
+
+from typing import Callable
 
 import numpy as np
 import torch
@@ -20,6 +27,7 @@ from hocon_torch.geometry.project import persp_project, transform_points
 from hocon_torch.models.losses import total_supervised_loss
 from hocon_torch.render.raster import soft_rasterize
 from hocon_torch.render.warp import WarpOutput, bilinear_sample, photometric_loss
+from hocon_torch.train.state import OptimizerSpec, TrainState, apply_gradients
 
 
 def batch_to_device(batch: dict, device: torch.device) -> dict:
@@ -173,6 +181,85 @@ def warp_loss(
     terms["loss_total"] = total
     terms["mask_area"] = torch.mean(torch.sum(warp_out.mask, dim=(1, 2)))
     return total, terms
+
+
+def _update(state: TrainState, loss: torch.Tensor, terms: dict) -> tuple[TrainState, dict]:
+    """Backward, clip, optimizer and schedule step; terms gain ``grad_norm``
+    (the gradients' global norm before clipping)."""
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    terms = {k: v.detach() for k, v in terms.items()}
+    terms["grad_norm"] = apply_gradients(state)
+    return state, terms
+
+
+def _check_state(state: TrainState, model: torch.nn.Module) -> None:
+    if state.model is not model:
+        raise ValueError("the train state holds another model than the step was made for")
+
+
+def make_train_step(
+    model: torch.nn.Module,
+    mano: ManoModel,
+    optimizer: OptimizerSpec,
+    hand_lambdas: dict | None = None,
+    obj_lambdas: dict | None = None,
+    device: str | torch.device | None = None,
+) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
+    """Supervised train step: (state, batch) -> (state, terms).
+
+    ``state`` is ``create_train_state(model, optimizer)``; it is updated in
+    place and returned, as the reference returns its new state.
+    """
+    dev = resolve_device(device)
+
+    def step(state: TrainState, batch: dict):
+        _check_state(state, model)
+        batch = batch_to_device(batch, dev)
+        out = model(_device_images(batch["image"]), batch["camintr"], mano,
+                    batch.get("obj_verts_can"))
+        loss, terms = total_supervised_loss(
+            out, _gt_from_batch(batch), batch["sup_mask"],
+            hand_lambdas=hand_lambdas, obj_lambdas=obj_lambdas,
+        )
+        return _update(state, loss, terms)
+
+    return step
+
+
+def make_warp_train_step(
+    model: torch.nn.Module,
+    mano: ManoModel,
+    optimizer: OptimizerSpec,
+    image_size: tuple[int, int],
+    hand_lambdas: dict | None = None,
+    obj_lambdas: dict | None = None,
+    lambda_consist: float = 1.0,
+    consist_gt_refs: bool = True,
+    sigma: float = 1.0,
+    gamma: float = 1.0 / 40.0,
+    backend: str = "auto",
+    photo_downscale: int = 1,
+    backface_cull: bool = True,
+    device: str | torch.device | None = None,
+) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
+    """Frame-pair photometric-consistency train step: ``warp_loss``, its
+    backward (K2 / K4 under the raster and the sampler), then the update.
+    Returns (state, terms) with the reference's term names."""
+    dev = resolve_device(device)
+
+    def step(state: TrainState, batch: dict):
+        _check_state(state, model)
+        loss, terms = warp_loss(
+            model, mano, batch, image_size, hand_lambdas=hand_lambdas,
+            obj_lambdas=obj_lambdas, lambda_consist=lambda_consist,
+            consist_gt_refs=consist_gt_refs, sigma=sigma, gamma=gamma,
+            backend=backend, photo_downscale=photo_downscale,
+            backface_cull=backface_cull, device=dev,
+        )
+        return _update(state, loss, terms)
+
+    return step
 
 
 @torch.no_grad()

@@ -21,7 +21,7 @@ from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hocon_torch"
-KERNELS = ("raster_fwd", "sample_fwd")
+KERNELS = ("raster_fwd", "raster_bwd", "sample_fwd", "sample_bwd")
 # No fast-math: approximate exp / reciprocal break the silhouette parity,
 # whose error compounds through the product over faces. -Xptxas -v writes
 # each kernel's registers, shared memory and spills into the build log.

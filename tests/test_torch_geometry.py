@@ -16,6 +16,11 @@ from hocon_torch.geometry import mano as TM
 from hocon_torch.geometry import project as TP
 from hocon_torch.geometry import rot as TR
 
+# pytest-xdist runs several workers on the same cores: one intra-op
+# thread each keeps torch's thread pools from oversubscribing them (with
+# a pool per core in each of 4 workers, a warp train step ran ~70x slower).
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def port_mano():

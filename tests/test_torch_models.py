@@ -24,6 +24,11 @@ from hocon_torch.models.losses import total_supervised_loss as port_supervised
 from hocon_torch.train.steps import eval_step
 from hocon_torch.utils.flax_weights import flax_to_state_dict, load_flax_variables
 
+# pytest-xdist runs several workers on the same cores: one intra-op
+# thread each keeps torch's thread pools from oversubscribing them (with
+# a pool per core in each of 4 workers, a warp train step ran ~70x slower).
+torch.set_num_threads(1)
+
 RES, B, VO = 64, 2, 30
 
 

@@ -35,6 +35,11 @@ from hocon_torch.train.steps import warp_loss
 from hocon_torch.utils import cuda_build
 from hocon_torch.utils.flax_weights import load_flax_variables
 
+# pytest-xdist runs several workers on the same cores: one intra-op
+# thread each keeps torch's thread pools from oversubscribing them (with
+# a pool per core in each of 4 workers, a warp train step ran ~70x slower).
+torch.set_num_threads(1)
+
 _CASES = {
     # name: (with_object, clip_len, photo_downscale)
     "pairs_with_object": (True, 2, 1),

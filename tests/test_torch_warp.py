@@ -25,6 +25,11 @@ from hocon.geometry.project import persp_project
 from hocon.render.sample_pallas import bilinear_sample_pallas
 from hocon_torch.geometry.mano import synthetic_mano_model
 
+# pytest-xdist runs several workers on the same cores: one intra-op
+# thread each keeps torch's thread pools from oversubscribing them (with
+# a pool per core in each of 4 workers, a warp train step ran ~70x slower).
+torch.set_num_threads(1)
+
 
 def _image_and_coords(seed=0, b=2, h=20, w=24, c=3, hq=16, wq=20):
     rng = np.random.default_rng(seed)
