@@ -278,7 +278,6 @@ def soft_rasterize(
     sigma: float = 1.0,
     gamma: float = 1.0 / 40.0,
     backend: str = "auto",
-    face_chunk: int = 128,
     backface_cull: bool = False,
 ) -> RasterOutput:
     """Soft-rasterize a batch of meshes (the reference's public entry).
@@ -288,8 +287,8 @@ def soft_rasterize(
     ``"pallas"``, the reference's name for its kernel path) is the
     y-sorted, chunk-culled path of kernels K1 / K2 (their plain PyTorch
     versions for CPU tensors); ``"xla"`` is the unculled streaming
-    ``rasterize_planes_xla`` in chunks of ``face_chunk`` faces, which
-    autograd differentiates (the reference's default off the TPU).
+    ``rasterize_planes_xla``, which autograd differentiates (the
+    reference's default off the TPU).
     """
     if backend not in BACKENDS:
         raise ValueError(f"soft_rasterize backend {backend!r}: expected one of {BACKENDS}")
@@ -298,7 +297,7 @@ def soft_rasterize(
     zbar = normalize_depth(verts_z)
     if backend == "xla":
         planes = face_planes(verts_pix, zbar, faces, attrs, backface_cull=backface_cull)
-        return rasterize_planes_xla(planes, image_size, sigma, gamma, face_chunk=face_chunk)
+        return rasterize_planes_xla(planes, image_size, sigma, gamma)
 
     from hocon_torch.render.raster_cuda import (
         default_config,

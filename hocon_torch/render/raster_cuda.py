@@ -383,22 +383,20 @@ def raster_fwd_cuda(coeffs, bounds, krange, image_size, sigma, gamma, config):
 def raster_fwd(
     coeffs: torch.Tensor,
     bounds: torch.Tensor,
+    krange: torch.Tensor,
     image_size: tuple[int, int],
     sigma: float,
     gamma: float,
     config: RasterConfig | None = None,
 ):
-    """K1: render packed faces; returns the padded (sil, attr, vis, mden).
+    """K1: render packed faces with their ``chunk_ranges``; returns the
+    padded (sil, attr, vis, mden).
 
     CUDA tensors launch the kernel (or raise); CPU tensors run
     ``raster_fwd_plain``. ``raster_fwd.launches`` counts kernel launches.
     """
-    config = config or default_config()
-    hp, _ = padded_size(image_size)
-    krange = chunk_ranges(bounds, hp)
-    if coeffs.is_cuda:
-        return raster_fwd_cuda(coeffs, bounds, krange, image_size, sigma, gamma, config)
-    return raster_fwd_plain(coeffs, bounds, krange, image_size, sigma, gamma, config)
+    fn = raster_fwd_cuda if coeffs.is_cuda else raster_fwd_plain
+    return fn(coeffs, bounds, krange, image_size, sigma, gamma, config or default_config())
 
 
 raster_fwd.launches = 0
@@ -588,6 +586,7 @@ def raster_bwd_cuda(coeffs, bounds, krange, sil, attr, vis, mden, gsil, gattr, g
 def raster_bwd(
     coeffs: torch.Tensor,
     bounds: torch.Tensor,
+    krange: torch.Tensor,
     sil: torch.Tensor,
     attr: torch.Tensor,
     vis: torch.Tensor,
@@ -600,19 +599,15 @@ def raster_bwd(
     gamma: float,
     config: RasterConfig | None = None,
 ) -> torch.Tensor:
-    """K2: dL/dcoeffs (B, Fp, 3R) from K1's padded outputs and cotangents.
+    """K2: dL/dcoeffs (B, Fp, 3R) from K1's inputs, its padded outputs and
+    their cotangents.
 
     CUDA tensors launch the kernel (or raise); CPU tensors run
     ``raster_bwd_plain``. ``raster_bwd.launches`` counts kernel launches.
     """
-    config = config or default_config()
-    hp, _ = padded_size(image_size)
-    krange = chunk_ranges(bounds, hp)
-    args = (coeffs, bounds, krange, sil, attr, vis, mden, gsil, gattr, gvis,
-            image_size, sigma, gamma, config)
-    if coeffs.is_cuda:
-        return raster_bwd_cuda(*args)
-    return raster_bwd_plain(*args)
+    fn = raster_bwd_cuda if coeffs.is_cuda else raster_bwd_plain
+    return fn(coeffs, bounds, krange, sil, attr, vis, mden, gsil, gattr, gvis,
+              image_size, sigma, gamma, config or default_config())
 
 
 raster_bwd.launches = 0
@@ -629,15 +624,17 @@ class RasterizeSorted(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, coeffs, bounds, image_size, sigma, gamma, config):
-        sil, attr, vis, mden = raster_fwd(coeffs, bounds, image_size, sigma, gamma, config)
-        ctx.save_for_backward(coeffs, bounds, sil, attr, vis, mden)
+        krange = chunk_ranges(bounds, padded_size(image_size)[0])
+        sil, attr, vis, mden = raster_fwd(coeffs, bounds, krange, image_size, sigma, gamma,
+                                          config)
+        ctx.save_for_backward(coeffs, bounds, krange, sil, attr, vis, mden)
         ctx.args = (image_size, sigma, gamma, config)
         h, w = image_size
         return sil[:, :h, :w], attr[:, :, :h, :w], vis[:, :h, :w]
 
     @staticmethod
     def backward(ctx, gsil, gattr, gvis):
-        coeffs, bounds, sil, attr, vis, mden = ctx.saved_tensors
+        coeffs, bounds, krange, sil, attr, vis, mden = ctx.saved_tensors
         image_size, sigma, gamma, config = ctx.args
         h, w = image_size
         hp, wp = sil.shape[1:]
@@ -647,7 +644,7 @@ class RasterizeSorted(torch.autograd.Function):
             return F.pad(g.float(), pad).contiguous()
 
         dcoeffs = raster_bwd(
-            coeffs, bounds, sil, attr, vis, mden, padded(gsil), padded(gattr),
+            coeffs, bounds, krange, sil, attr, vis, mden, padded(gsil), padded(gattr),
             padded(gvis), image_size, sigma, gamma, config,
         )
         return dcoeffs, None, None, None, None, None

@@ -4,10 +4,10 @@ A torch optimizer needs its parameters when it is built, so
 ``make_optimizer`` returns an ``OptimizerSpec`` that builds the optimizer
 and its learning-rate schedule from ``model.parameters()``;
 ``create_train_state`` does that and holds model, optimizer, schedule and
-step count together. The updates are optax's: adam / adamw (``OptaxAdam``,
-optax's arithmetic) and sgd with momentum (``torch.optim.SGD``, the same
-trace as optax's), a staircase step decay whose first update uses ``lr``, and
-global-norm clipping of the gradients before the update
+step count together. The updates are optax's: adam / adamw (``OptaxAdam``:
+torch's fused AdamW with optax's bias corrections) and sgd with momentum
+(``torch.optim.SGD``, the same trace as optax's), a staircase step decay
+whose first update uses ``lr``, and global-norm clipping of the gradients before the update
 (``optax.clip_by_global_norm``: scaled by max_norm / norm only when the
 norm reaches max_norm, with no epsilon).
 """
@@ -22,52 +22,52 @@ import torch
 from torch import nn
 
 
-class OptaxAdam(torch.optim.Optimizer):
-    """Adam, or AdamW with ``weight_decay``, with optax's arithmetic.
+class OptaxAdam(torch.optim.AdamW):
+    """Adam, or AdamW with ``weight_decay``, with optax's bias corrections,
+    on torch's fused AdamW kernel.
 
-    ``torch.optim.Adam`` computes the bias corrections ``1 - b^t`` in double;
-    optax computes them in f32 (``f32(0.999)^t``) while weighting the
-    moments by ``1 - b`` in double, which moves each update by ~1e-5 of
-    itself. This follows optax: m = (1-b1) g + b1 m, v = (1-b2) g^2 + b2 v,
-    u = (m / bc1) / (sqrt(v / bc2) + eps) [+ wd * p], p -= lr * u. Runs on
-    lists of tensors (``torch._foreach_*``): a few launches per step.
+    optax evaluates the bias corrections ``1 - b^t`` in f32
+    (``f32(0.999)^t``) where torch uses double, which moves each update by
+    ~1e-5 of itself. Every parameter's step count starts where torch's
+    own corrections are exactly 1 (``b^t`` underflows), and each step
+    passes optax's in through the rate and epsilon: the update
+    (m / bc1) / (sqrt(v / bc2) + eps) equals (lr * sqrt(bc2) / bc1) * m /
+    (sqrt(v) + eps * sqrt(bc2)), and the decay rate is rescaled so that
+    p *= 1 - lr * wd as in optax's adamw.
     """
 
-    def __init__(self, params, lr: float, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8, weight_decay: float = 0.0):
-        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay))
+    _START_STEP = 1e6  # 0.9^t and 0.999^t are 0 in double from here on
+
+    def __init__(self, params, lr: float, eps: float = 1e-8, weight_decay: float = 0.0):
+        super().__init__(params, lr=lr, betas=(0.9, 0.999), eps=eps,
+                         weight_decay=weight_decay, fused=True)
+        for group in self.param_groups:
+            for p in group["params"]:
+                self.state[p].update(
+                    step=torch.tensor(self._START_STEP, dtype=torch.float32, device=p.device),
+                    exp_avg=torch.zeros_like(p, memory_format=torch.preserve_format),
+                    exp_avg_sq=torch.zeros_like(p, memory_format=torch.preserve_format),
+                )
 
     @torch.no_grad()
     def step(self, closure=None):
+        saved = []
         for group in self.param_groups:
-            params = [p for p in group["params"] if p.grad is not None]
-            if not params:
-                continue
-            grads = [p.grad for p in params]
-            for p in params:
-                if not self.state[p]:
-                    self.state[p].update(m=torch.zeros_like(p), v=torch.zeros_like(p))
-            ms = [self.state[p]["m"] for p in params]
-            vs = [self.state[p]["v"] for p in params]
             group["count"] = count = group.get("count", 0) + 1
-            b1, b2 = group["b1"], group["b2"]
-            torch._foreach_mul_(ms, b1)
-            torch._foreach_add_(ms, torch._foreach_mul(grads, 1.0 - b1))
-            torch._foreach_mul_(vs, b2)
-            torch._foreach_add_(vs, torch._foreach_mul(torch._foreach_mul(grads, grads), 1.0 - b2))
-            # Bias corrections as optax evaluates them: f32 decay ** f32 count.
-            # 1 - b2^t cancels, so one ulp of the power moves the update by
-            # ~1e-5; numpy's f32 power gives JAX's bits (torch's does not).
+            b1, b2 = group["betas"]
+            # As optax evaluates them: f32 decay ** f32 count (numpy's f32
+            # power gives JAX's bits).
             one, n = np.float32(1.0), np.float32(count)
             bc1 = float(one - np.float32(b1) ** n)
-            bc2 = float(one - np.float32(b2) ** n)
-            den = torch._foreach_sqrt(torch._foreach_div(vs, bc2))
-            torch._foreach_add_(den, group["eps"])
-            upd = torch._foreach_div(torch._foreach_div(ms, bc1), den)
-            if group["weight_decay"]:
-                torch._foreach_add_(upd, torch._foreach_mul(params, group["weight_decay"]))
-            torch._foreach_mul_(upd, -group["lr"])
-            torch._foreach_add_(params, upd)
+            root_bc2 = float(np.sqrt(float(one - np.float32(b2) ** n)))
+            lr, eps, wd = group["lr"], group["eps"], group["weight_decay"]
+            saved.append((lr, eps, wd))
+            group["lr"] = lr * root_bc2 / bc1
+            group["eps"] = eps * root_bc2
+            group["weight_decay"] = wd * lr / group["lr"]
+        super().step()
+        for group, (lr, eps, wd) in zip(self.param_groups, saved):
+            group["lr"], group["eps"], group["weight_decay"] = lr, eps, wd
 
 
 @dataclasses.dataclass(frozen=True)

@@ -164,8 +164,9 @@ def test_raster_fwd_plain_matches_pallas_kernel(mano_model, gamma):
     coeffs, bounds = RP.pack_sorted_planes(planes_ref, bb_ref, 1.0, presorted=True)
     hw = (56, 64)
     ref = RP._forward_padded(coeffs, bounds, hw, 1.0, gamma, 3, RP.default_config())
-    got = TRC.raster_fwd(torch.from_numpy(np.array(coeffs)), torch.from_numpy(np.array(bounds)),
-                         hw, 1.0, gamma)
+    bounds_t = torch.from_numpy(np.array(bounds))
+    got = TRC.raster_fwd(torch.from_numpy(np.array(coeffs)), bounds_t,
+                         TRC.chunk_ranges(bounds_t, 56), hw, 1.0, gamma)
     assert [tuple(g.shape) for g in got] == [r.shape for r in ref]
     names = ("sil", "attr", "vis", "mden")
     for name, g, r in zip(names, got, ref):

@@ -116,9 +116,9 @@ def test_raster_bwd_plain_matches_pallas_kernel(mano_model, gamma):
         return torch.nn.functional.pad(_t(g), (0, 128 - 64, 0, 0))
 
     state = [_t(r) for r in residual] + [padded(g) for g in grads]
-    got = TRC.raster_bwd(_t(coeffs), _t(bounds), *state, hw, 1.0, gamma).numpy()
-    assert got.shape == want.shape == coeffs.shape
     krange = TRC.chunk_ranges(_t(bounds), 64)
+    got = TRC.raster_bwd(_t(coeffs), _t(bounds), krange, *state, hw, 1.0, gamma).numpy()
+    assert got.shape == want.shape == coeffs.shape
     exact = TRC.raster_bwd_plain(_t(coeffs).double(), _t(bounds), krange,
                                  *(s.double() for s in state), hw, 1.0, gamma,
                                  TRC.default_config()).numpy()
