@@ -16,9 +16,13 @@ Phases, each reported on its own line:
    with seeded noise cotangents on covered pixels, against its plain
    version evaluated in float64 (the arbiter) group by group (depth row,
    attribute rows, edge rows chained to the vertices), run twice to show
-   the same bits; faults planted in its output must fail the check;
+   the same bits; faults planted in its output must fail the check; the
+   row segments and pairs it evaluates under its skip rule are counted on
+   the host (``raster_cuda.far_faces``) against K1's pairs;
 5. K3      — the bilinear sampler against its plain version at the
-   rendered coordinates, plus coordinates far outside the image;
+   rendered coordinates, plus coordinates far outside the image and a
+   query count that is not a multiple of 4; timed in turns with
+   ``grid_sample``, cold (inputs cycled past the L2) and L2-hot;
 6. K4      — the sampler's coordinate gradient against its plain version
    at the same coordinates plus integer ones;
 7. slice   — ``warp_loss`` under ``torch.no_grad`` at full width (HOCNet
@@ -31,6 +35,10 @@ Phases, each reported on its own line:
    before; every kernel must launch every step, every term and the
    gradient norm be finite, and the loss fall over 8 steps; one step is
    profiled.
+
+Kernel times are CUDA-event means over many launches, with the stream held
+while the host issues them (``cuda_ms_rotating``), so they are the card's
+time and not the host's issue rate.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
@@ -58,6 +66,12 @@ SIGMA = 1.0
 GAMMAS = (1.0 / 40.0, 1.0 / 100.0)  # fixed-m path, streaming path
 TIMED_FORWARDS = 5
 TRAIN_STEPS = 8  # one warm-up step, then TRAIN_STEPS - 1 timed ones
+# K3 and grid_sample are timed in turns (K3, grid_sample, grid_sample, K3)
+# over SAMPLE_REPS launches each, cold: cycling through COLD_COPIES copies of
+# image and coordinates (4 x 21 MB of inputs, past the 50 MB L2), and hot.
+SAMPLE_REPS = 200
+COLD_COPIES = 4
+HOLD_CYCLES = 100_000_000  # ~50 ms of SM clock: longer than the host takes to issue a timing run
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 non-tensor FLOP/s.
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
@@ -84,13 +98,27 @@ def fail(msg: str) -> None:
 
 def cuda_ms(torch, fn, reps: int) -> float:
     """Mean device time of ``fn`` over ``reps`` launches (CUDA events)."""
-    fn()
+    return cuda_ms_rotating(torch, [fn], reps)
+
+
+def cuda_ms_rotating(torch, fns: list, reps: int) -> float:
+    """Mean device time per launch over ``reps`` launches that cycle
+    through ``fns`` (CUDA events), after one warm-up call of each.
+
+    The stream first spins for ``HOLD_CYCLES`` while the host enqueues
+    every launch, so the events time the card running them back to back:
+    a launch of ~0.02 ms costs the host about as long to issue, and
+    without the hold the events time the host's issue rate.
+    """
+    for fn in fns:
+        fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    for i in range(reps):
+        fns[i % len(fns)]()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -293,6 +321,27 @@ def k2_bound(torch, coeffs, bounds, krange, res: int):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes"), pairs
 
 
+def k2_pairs(torch, coeffs, bounds, krange, res: int) -> dict:
+    """What K2 evaluates on this data, by its skip rule mirrored on the
+    host (``raster_cuda.far_faces``): the 32-pixel row segments it walks
+    (K1's cells) and skips, the (face, pixel) pairs of the kept segments,
+    and of those the pairs of faces that are not far from their segment."""
+    from hocon_torch.render import raster_cuda as RC
+
+    cfg = RC.default_config()
+    hp, wp = RC.padded_size((res, res))
+    xb = RC.lane_block(wp)
+    b, nc = bounds.shape[:2]
+    fc, seg = cfg.face_chunk, RC.SEGMENT
+    in_cell = RC.cell_hits(bounds, krange, hp, wp, xb)  # (B, NC, NYB, NXB)
+    in_cell = in_cell.repeat_interleave(RC.ROW_BLOCK, 2).repeat_interleave(xb // seg, 3)
+    far = RC.far_faces(coeffs, bounds, krange, (res, res), SIGMA, cfg).view(b, nc, fc, hp, -1)
+    kept = in_cell & ~far.all(dim=2)
+    return {"walked": int(in_cell.sum()), "kept": int(kept.sum()),
+            "pairs": int(kept.sum()) * fc * seg,
+            "lane_pairs": int((~far & kept[:, :, None]).sum()) * seg}
+
+
 def geometry_chain(torch, tgt, faces, k):
     """The chain rule from rows 0-8 of dcoeffs (edge, along-edge and length
     rows) to the target-view vertex pixels (B, V, 2), in float64.
@@ -426,8 +475,13 @@ def phase_k2(torch, device, scene, smi: str, out: dict) -> None:
             ms = cuda_ms(torch, lambda: RC.raster_bwd_cuda(*args), 20)
             plain_ms = cuda_ms(torch, lambda: RC.raster_bwd_plain(*args), 2)
             bound_ms, bound_by, pairs = k2_bound(torch, coeffs, bounds, krange, RES)
+            n = k2_pairs(torch, coeffs, bounds, krange, RES)
             log(f"K2 time: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
                 f"({bound_by}; {pairs / 1e6:.1f}M face-pixel pairs); card {smi}")
+            log(f"K2 evaluated: {n['kept']} of {n['walked']} row segments "
+                f"({n['walked'] - n['kept']} skipped), {n['pairs'] / 1e6:.1f}M face-pixel pairs "
+                f"against K1's {pairs / 1e6:.1f}M; {n['lane_pairs'] / 1e6:.1f}M of them on faces "
+                f"not far from their segment (host count, raster_cuda.far_faces)")
     if failures:
         fail("; ".join(failures))
     out.update(name="raster_bwd", route="cuda", source="hocon_torch/csrc/raster_bwd.cu",
@@ -458,21 +512,53 @@ def phase_k3(torch, device, coords, images, smi: str, out: dict) -> None:
     err = float((got - want).abs().max())
     if not err <= SAMPLE_ATOL:
         fail(f"K3 max err {err:.3g} > {SAMPLE_ATOL}")
-    ms = cuda_ms(torch, lambda: SC.sample_fwd_cuda(img, xy), 50)
     plain_ms = cuda_ms(torch, lambda: SC.sample_fwd_plain(img, xy), 10)
     # Library yardstick: grid_sample with the same border clamp, NCHW in.
-    img_nchw = img.permute(0, 3, 1, 2).contiguous()
-    grid = xy / torch.tensor([RES / 2.0, RES / 2.0], device=device) - 1.0
-    lib = F.grid_sample(img_nchw, grid, mode="bilinear", padding_mode="border",
-                        align_corners=False).permute(0, 2, 3, 1)
+    def to_grid(c):
+        return c / torch.tensor([RES / 2.0, RES / 2.0], device=device) - 1.0
+
+    def grid_sample(image_nchw, grid):
+        return F.grid_sample(image_nchw, grid, mode="bilinear", padding_mode="border",
+                             align_corners=False)
+
+    lib = grid_sample(img.permute(0, 3, 1, 2).contiguous(), to_grid(xy)).permute(0, 2, 3, 1)
     lib_err = float((lib - want).abs().max())
-    library_ms = cuda_ms(torch, lambda: F.grid_sample(
-        img_nchw, grid, mode="bilinear", padding_mode="border", align_corners=False), 50)
+    # Hq * Wq = 35: each image has head and tail pixels off the float4 path.
+    gen = torch.Generator(device=device).manual_seed(2)
+    small = torch.rand((3, 9, 11, 3), generator=gen, device=device)
+    small_xy = torch.rand((3, 5, 7, 2), generator=gen, device=device) * 14.0 - 2.0
+    tail_err = float((SC.sample_fwd(small, small_xy) - SC.sample_fwd_plain(small, small_xy))
+                     .abs().max())
+    if not tail_err <= SAMPLE_ATOL:
+        fail(f"K3 max err {tail_err:.3g} > {SAMPLE_ATOL} at 3 x 5 x 7 queries")
+    err = max(err, tail_err)
+    imgs = [img.clone() for _ in range(COLD_COPIES)]
+    xys = [xy.clone() for _ in range(COLD_COPIES)]
+    nchw = [i.permute(0, 3, 1, 2).contiguous() for i in imgs]
+    grids = [to_grid(c) for c in xys]
+    k3 = [lambda i=i: SC.sample_fwd_cuda(imgs[i], xys[i]) for i in range(COLD_COPIES)]
+    gs = [lambda i=i: grid_sample(nchw[i], grids[i]) for i in range(COLD_COPIES)]
+
+    def in_turns(copies):  # K3, grid_sample, grid_sample, K3
+        k_a = cuda_ms_rotating(torch, k3[:copies], SAMPLE_REPS)
+        g_a = cuda_ms_rotating(torch, gs[:copies], SAMPLE_REPS)
+        g_b = cuda_ms_rotating(torch, gs[:copies], SAMPLE_REPS)
+        k_b = cuda_ms_rotating(torch, k3[:copies], SAMPLE_REPS)
+        return (k_a, k_b), (g_a, g_b)
+
+    (cold_k, cold_g), (hot_k, hot_g) = in_turns(COLD_COPIES), in_turns(1)
+    ms, library_ms = sum(cold_k) / 2, sum(cold_g) / 2
     nbytes = 4 * (xy.numel() + img.numel() + got.numel())
     bound_ms = 1e3 * nbytes / PEAK_BYTES
-    log(f"K3: max abs err {err:.3g} (grid_sample differs by {lib_err:.3g}); kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, grid_sample {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({nbytes / 1e6:.1f} MB); card {smi}")
+    log(f"K3: max abs err {err:.3g} (grid_sample differs by {lib_err:.3g}); cold, in turns over "
+        f"{COLD_COPIES} copies ({COLD_COPIES * 4 * (xy.numel() + img.numel()) / 1e6:.0f} MB of "
+        f"inputs), {SAMPLE_REPS} launches each: kernel {cold_k[0]:.4f} / {cold_k[1]:.4f} ms, "
+        f"grid_sample {cold_g[0]:.4f} / {cold_g[1]:.4f} ms; kernel {ms:.4f} ms = "
+        f"{bound_ms / ms:.0%} of its bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB), plain "
+        f"{plain_ms:.4f} ms; card {smi}")
+    log(f"K3 L2-hot, in turns on one copy, {SAMPLE_REPS} launches each: kernel "
+        f"{hot_k[0]:.4f} / {hot_k[1]:.4f} ms, grid_sample {hot_g[0]:.4f} / {hot_g[1]:.4f} ms; "
+        f"card {smi}")
     out.update(name="sample_fwd", route="cuda", source="hocon_torch/csrc/sample_fwd.cu",
                replaces="hocon/render/sample_pallas.py:105", max_abs_err=err, ms=ms,
                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms)

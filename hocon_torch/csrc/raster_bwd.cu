@@ -21,21 +21,90 @@
 // chunk) and so one 32 x 3R block of the output; no atomics, and the sums
 // run in a fixed order, so a repeat run gives the same bits. The block
 // walks the pixel cells in which K1 evaluated its chunk (the same y, x and
-// chunk-range tests), 8 x 32-pixel tiles at a time. Lane f of every warp
-// owns face f of the chunk and keeps its 3R coefficients and 3R partial
-// sums in registers; warp w takes row w of the tile. A tile's per-pixel
-// state (10 floats) is staged in shared memory once and read by all 32
-// lanes of a warp as broadcasts. At the end the 8 warps' partial sums meet
-// in shared memory and are added in warp order.
+// chunk-range tests). Lane f of every warp owns face f of the chunk and
+// keeps its 3R coefficients and 3R partial sums in registers; warp w takes
+// row w of each 8-row cell, 32 columns (a row segment) at a time. A
+// segment's per-pixel state (10 floats) is staged in shared memory by the
+// warp that reads it, as broadcasts to its 32 lanes, so the warps run
+// decoupled (__syncwarp only). At the end the 8 warps' partial sums meet in
+// shared memory and are added in warp order, after the one block barrier.
+//
+// Skipping the pairs that add exactly zero. In f32 the coverage
+// 1 / (1 + expf(-logits)) is exactly 0 once -logits exceeds ~88.7228:
+// expf overflows to inf. Then what = 0 * expf(e_w) * inv_den (e_w <= 80),
+// and dl, dx, dss and every row's dval are +-0, so the pair changes no sum
+// (an accumulator that starts at +0 never holds -0, and x + (+-0) == x).
+// Before staging a segment each lane bounds its own face over the
+// segment's 32 pixels from the rows at the segment's two ends: per edge,
+// min |s| (0 if the sign can change) and min ov (ov = max(-u, u - L, 0) is
+// convex in u, u affine in x); c2 = s^2 + ov^2 is at least the sum of the
+// two squares. The face is far when every edge's bound, over sigma^2,
+// exceeds kFarLogit = 89 and some edge is <= 0 on the whole segment (so no
+// pixel is inside). When all 32 lanes are far (__all_sync) the warp skips
+// the segment: no loads, no pairs.
+//
+// The margin. The kernel evaluates each row per pixel in f32, fused or not;
+// the bound evaluates it at the ends. Either evaluation lies within
+// 3 * 2^-24 * mag of the exact affine value, mag = |a0| x + |a1| y + |a2|
+// at the segment's right end, and the exact value is affine along the row.
+// So every end value is widened by kRowTol * mag = 2^-20 * mag (more than
+// twice the 6 * 2^-24 * mag that the two evaluations can differ by). That
+// margin scales with the row's own coefficients, so the large rows of rim
+// slivers (a ~1/det cancellation) get a margin to match. What is left is
+// relative rounding in squaring, summing and scaling by 1 / sigma^2: a few
+// parts in 1e7, against the 0.3 % between 88.7228 and 89. The bound is
+// computed with __fmul_rn / __fadd_rn, so no contraction moves it, and
+// raster_cuda.far_segments mirrors it op for op. For finite inputs the
+// result is bitwise that of evaluating every pair.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kRowBlock = 8;  // ROW_BLOCK of the chunk ranges; one warp per row
-constexpr int kTileW = 32;    // columns per tile
+constexpr int kTileW = 32;    // columns per row segment
 constexpr int kFaces = 32;    // faces per chunk: one per lane
 constexpr int kAttrs = 2;     // user attribute channels C (reference-view x, y)
+constexpr float kFarLogit = 89.0f;  // expf(89) > FLT_MAX: the sigmoid is exactly 0
+constexpr float kRowTol = 0x1p-20f;  // row evaluation margin per unit of magnitude
+constexpr unsigned kAllLanes = 0xffffffffu;
+
+// Row (a0, a1, a2) at the ends xa < xb of a segment on row y >= 0: the
+// smaller and larger end value and the margin that covers any f32
+// evaluation at a pixel between them.
+struct RowSpan {
+  float lo, hi, tol;
+};
+
+__device__ __forceinline__ RowSpan row_span(float a0, float a1, float a2, float xa, float xb,
+                                            float y) {
+  const float base = __fadd_rn(__fmul_rn(a1, y), a2);
+  const float va = __fadd_rn(__fmul_rn(a0, xa), base);
+  const float vb = __fadd_rn(__fmul_rn(a0, xb), base);
+  const float mag =
+      __fadd_rn(__fadd_rn(__fmul_rn(fabsf(a0), xb), __fmul_rn(fabsf(a1), y)), fabsf(a2));
+  return {fminf(va, vb), fmaxf(va, vb), __fmul_rn(mag, kRowTol)};
+}
+
+// True when the face's coverage sigmoid, as evaluated below, is exactly 0
+// at every pixel centre (x, y) with xa <= x <= xb.
+template <int R3>
+__device__ __forceinline__ bool face_far(const float (&a)[R3], float xa, float xb, float y,
+                                         float inv_sigma_sq) {
+  float lb = __int_as_float(0x7f800000);  // +inf
+  bool outside = false;
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    const RowSpan s = row_span(a[3 * e], a[3 * e + 1], a[3 * e + 2], xa, xb, y);
+    const RowSpan u = row_span(a[3 * (3 + e)], a[3 * (3 + e) + 1], a[3 * (3 + e) + 2], xa, xb, y);
+    const float len = a[3 * (6 + e) + 2];
+    const float s_lb = fmaxf(__fsub_rn(fmaxf(s.lo, -s.hi), s.tol), 0.0f);
+    const float ov_lb = fmaxf(__fsub_rn(fmaxf(-u.hi, __fsub_rn(u.lo, len)), u.tol), 0.0f);
+    lb = fminf(lb, __fadd_rn(__fmul_rn(s_lb, s_lb), __fmul_rn(ov_lb, ov_lb)));
+    outside = outside || __fadd_rn(s.hi, s.tol) <= 0.0f;
+  }
+  return outside && __fmul_rn(lb, inv_sigma_sq) > kFarLogit;
+}
 
 template <int C>
 __global__ void __launch_bounds__(kFaces * kRowBlock)
@@ -53,17 +122,17 @@ raster_bwd_kernel(const int* __restrict__ krange,    // (B, NYB, 2)
                   int hp, int wp, int nyb, int nc, int fp, int lane_block,
                   float inv_sigma_sq, float inv_gamma) {
   constexpr int R3 = 3 * (10 + C);
-  constexpr int kPix = kRowBlock * kTileW;  // pixels per tile
+  constexpr int kPix = kRowBlock * kTileW;  // staging slots: one per thread
   constexpr int kState = 6 + 2 * C;         // staged floats per pixel
   constexpr int kRedStride = R3 + 1;        // odd: conflict-free per-lane rows
-  // Tile state, then (after the last tile) the warps' partial sums.
+  // Segment state, then (after the last segment) the warps' partial sums.
   __shared__ float smem[kRowBlock * kFaces * kRedStride];
   static_assert(kState * kPix <= kRowBlock * kFaces * kRedStride, "staging fits");
 
   const int k = blockIdx.x;
   const int b = blockIdx.y;
   const int lane = threadIdx.x;  // face of the chunk
-  const int warp = threadIdx.y;  // row of the tile
+  const int warp = threadIdx.y;  // row of the cell
   const int tid = warp * kFaces + lane;
 
   const float* bnd = bounds + (static_cast<size_t>(b) * nc + k) * 4;
@@ -86,13 +155,17 @@ raster_bwd_kernel(const int* __restrict__ krange,    // (B, NYB, 2)
     const int ks = krange[(b * nyb + yi) * 2];
     const int ke = krange[(b * nyb + yi) * 2 + 1];
     if (!(k >= ks && k < ke && y_base + kRowBlock > ymin && y_base < ymax)) continue;
+    const float y = static_cast<float>(yi * kRowBlock + warp) + 0.5f;
     for (int xi = 0; xi < nxb; ++xi) {
       const float x_base = static_cast<float>(xi * lane_block);
       if (!(x_base + lane_block > xmin && x_base < xmax)) continue;
       for (int col0 = xi * lane_block; col0 < (xi + 1) * lane_block; col0 += kTileW) {
-        __syncthreads();  // the previous tile's readers are done
+        const float xa = static_cast<float>(col0) + 0.5f;
+        const float xb = static_cast<float>(col0 + kTileW - 1) + 0.5f;
+        if (__all_sync(kAllLanes, face_far(a, xa, xb, y, inv_sigma_sq))) continue;
+        __syncwarp();  // this warp's reads of its previous segment are done
         {
-          // Thread (warp, lane) stages pixel (row warp, column lane).
+          // Lane l stages pixel (row y, column col0 + l) in this warp's slots.
           const size_t pix = static_cast<size_t>(yi * kRowBlock + warp) * wp + col0 + lane;
           const size_t bp = static_cast<size_t>(b) * plane + pix;
           const size_t ap = static_cast<size_t>(b) * (C + 1) * plane + pix;
@@ -109,9 +182,8 @@ raster_bwd_kernel(const int* __restrict__ krange,    // (B, NYB, 2)
             st[(7 + 2 * c) * kPix] = attr[ap + c * plane];
           }
         }
-        __syncthreads();
+        __syncwarp();  // the segment's state is visible to all 32 lanes
 
-        const float y = static_cast<float>(yi * kRowBlock + warp) + 0.5f;
         const float* st = smem + warp * kTileW;
 #pragma unroll 1
         for (int j = 0; j < kTileW; ++j) {

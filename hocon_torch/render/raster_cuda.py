@@ -16,7 +16,9 @@ pairs the two as one ``torch.autograd.Function``, as the reference's
 ``raster_fwd.launches`` and ``raster_bwd.launches``. The kernels replace
 ``hocon/render/raster_pallas.py:_raster_kernel`` and ``_raster_bwd_kernel``;
 their source notes say what bounds them on the card and how their designs
-answer that.
+answer that. ``far_faces`` / ``far_segments`` mirror, op for op, the rule
+by which K2 skips the row segments where every face's coverage is exactly
+0; only the tests and ``chip_smoke.py`` call them.
 """
 
 from __future__ import annotations
@@ -48,6 +50,13 @@ _BIG_NEG = -1e4  # inert-face edge constant; its square stays in f32 range
 # the background weight exp(-1 / gamma) stay inside f32 range.
 FIXED_M_MAX_INV_GAMMA = 60.0
 KERNEL_ATTRS = 2  # attribute channels the CUDA kernels are built for
+# K2's skip rule (``far_faces``): a face is far from a 32-pixel row segment
+# when its logits there are below -FAR_LOGIT (expf overflows, so the f32
+# coverage sigmoid is exactly 0); each row's end values are widened by
+# ROW_TOL times the row's magnitude. Both as in hocon_torch/csrc/raster_bwd.cu.
+SEGMENT = 32
+FAR_LOGIT = 89.0
+ROW_TOL = 2.0**-20
 
 
 class RasterConfig(NamedTuple):
@@ -517,6 +526,66 @@ def raster_bwd_plain(
             out[:, :, i, 1] = (dval * y).sum(dim=(2, 3))
             out[:, :, i, 2] = dval.sum(dim=(2, 3))
     return dcoeffs.reshape(b, fp, r3)
+
+
+def _row_span(a, i, xa, xb, y):
+    """Row i of the faces ``a`` (B, FC, R, 3) at the ends ``xa`` < ``xb``
+    of row segments on rows ``y``: (lo, hi, tol), K2's ``row_span`` op for
+    op in the dtype of ``a``."""
+    a0, a1, a2 = (a[:, :, i, j, None, None] for j in range(3))
+    base = a1 * y + a2
+    va = a0 * xa + base
+    vb = a0 * xb + base
+    mag = (a0.abs() * xb + a1.abs() * y) + a2.abs()
+    return torch.fmin(va, vb), torch.fmax(va, vb), mag * ROW_TOL
+
+
+def far_faces(coeffs, bounds, krange, image_size, sigma, config):
+    """(B, Fp, Hp, Wp / 32) bool: K2's skip rule for each face and 32-pixel
+    row segment of the cells that K1 evaluated its chunk in (False
+    elsewhere), computed op for op as the kernel computes it.
+
+    A face is far from a segment when, from its rows at the segment's two
+    ends widened by ``ROW_TOL`` times each row's magnitude, every edge's
+    lower bound on s^2 + ov^2 over sigma^2 exceeds ``FAR_LOGIT`` and some
+    edge is <= 0 over the whole segment: its f32 coverage sigmoid is then
+    exactly 0 at every pixel of the segment. Only the tests and
+    ``chip_smoke.py`` call this; the kernel decides on the card.
+    """
+    b, fp, _ = coeffs.shape
+    hp, wp = padded_size(image_size)
+    fc = config.face_chunk
+    inv_sigma_sq = torch.tensor(1.0 / (sigma * sigma), dtype=coeffs.dtype, device=coeffs.device)
+    zero = torch.zeros((), dtype=coeffs.dtype, device=coeffs.device)
+    far = torch.zeros((b, fp, hp, wp // SEGMENT), dtype=torch.bool, device=coeffs.device)
+    for cell in _chunk_cells(coeffs, bounds, krange, image_size, config):
+        a, y = cell.a, cell.y
+        xa, xb = cell.x[..., ::SEGMENT], cell.x[..., SEGMENT - 1::SEGMENT]
+        lb, outside = None, None
+        for e in range(3):
+            s_lo, s_hi, s_tol = _row_span(a, e, xa, xb, y)
+            u_lo, u_hi, u_tol = _row_span(a, 3 + e, xa, xb, y)
+            length = a[:, :, 6 + e, 2, None, None]
+            s_lb = torch.fmax(torch.fmax(s_lo, -s_hi) - s_tol, zero)
+            ov_lb = torch.fmax(torch.fmax(-u_hi, u_lo - length) - u_tol, zero)
+            lb_e = s_lb * s_lb + ov_lb * ov_lb
+            out_e = s_hi + s_tol <= 0
+            lb = lb_e if lb is None else torch.fmin(lb, lb_e)
+            outside = out_e if outside is None else outside | out_e
+        take = cell.take[:, None, :, ::SEGMENT]  # the cells that evaluate the chunk
+        segs = slice(cell.xs.start // SEGMENT, cell.xs.stop // SEGMENT)
+        far[:, cell.k * fc:(cell.k + 1) * fc, cell.ys, segs] = (
+            outside & (lb * inv_sigma_sq > FAR_LOGIT) & take)
+    return far
+
+
+def far_segments(coeffs, bounds, krange, image_size, sigma, config):
+    """(B, NC, Hp, Wp / 32) bool: the row segments K2 skips for each chunk,
+    those where all of the chunk's faces are ``far_faces``."""
+    far = far_faces(coeffs, bounds, krange, image_size, sigma, config)
+    b, fp, hp, n_seg = far.shape
+    fc = config.face_chunk
+    return far.reshape(b, fp // fc, fc, hp, n_seg).all(dim=2)
 
 
 @functools.cache

@@ -29,6 +29,8 @@ import functools
 
 import torch
 
+SAMPLE_FWD_CHANNELS = 3  # K3 is built for RGB images
+
 
 def sample_fwd_plain(image: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """K3's plain PyTorch version: a port of ``bilinear_sample_gather``."""
@@ -69,12 +71,18 @@ def sample_fwd_cuda(image: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"coords {tuple(coords.shape)} for image {tuple(image.shape)}")
     if h < 2 or w < 2:
         raise ValueError("sample_fwd needs an image of at least 2 x 2 pixels")
+    if c != SAMPLE_FWD_CHANNELS:
+        raise ValueError(f"sample_fwd kernel is built for {SAMPLE_FWD_CHANNELS} channels, got {c}")
+    if b > 65535 or b * max(h * w, hq * wq) * c >= 2**31:
+        raise ValueError(f"sample_fwd: image {tuple(image.shape)} at {(hq, wq)} queries "
+                         "exceeds the kernel's 32-bit indexing")
     for name, t in (("image", image), ("coords", coords)):
         if t.dtype != torch.float32 or not t.is_contiguous() or t.device != image.device:
             raise ValueError(f"sample_fwd: {name} must be contiguous f32 on {image.device}")
-    if coords.data_ptr() % 8:
-        raise ValueError("sample_fwd: coords must be 8-byte aligned (float2 reads)")
     out = torch.empty((b, hq, wq, c), device=image.device, dtype=torch.float32)
+    for name, t in (("coords", coords), ("output", out)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"sample_fwd: {name} must be 16-byte aligned (float4 access)")
     stream = torch.cuda.current_stream(image.device).cuda_stream
     err = _kernel_lib().hocon_sample_fwd(
         image.data_ptr(), coords.data_ptr(), out.data_ptr(),

@@ -31,7 +31,10 @@ def bilinear_sample(
     """
     if image_grad:
         return sample_fwd_plain(image.float(), coords.float())
-    return BilinearSample.apply(image.detach().float().contiguous(), coords.float().contiguous())
+    coords = coords.float().contiguous()
+    if coords.data_ptr() % 16:  # a view at an odd offset: K3 reads float4
+        coords = coords.clone()
+    return BilinearSample.apply(image.detach().float().contiguous(), coords)
 
 
 class WarpOutput(NamedTuple):

@@ -42,16 +42,58 @@ def _image_and_coords(seed=0, b=2, h=20, w=24, c=3, hq=16, wq=20):
     return img, coords
 
 
+@pytest.mark.parametrize("hq, wq", [(16, 20), (5, 7)])  # 35 queries: K3's head and tail
 @pytest.mark.parametrize("seed", [0, 1])
-def test_sample_fwd_matches_gather_and_pallas(seed):
-    img, coords = _image_and_coords(seed)
+def test_sample_fwd_matches_gather_and_pallas(seed, hq, wq):
+    img, coords = _image_and_coords(seed, hq=hq, wq=wq)
     got = TSC.sample_fwd(torch.from_numpy(img), torch.from_numpy(coords)).numpy()
     ref_g = np.asarray(W.bilinear_sample_gather(jnp.asarray(img), jnp.asarray(coords)))
     ref_p = np.asarray(bilinear_sample_pallas(jnp.asarray(img), jnp.asarray(coords)))
-    assert got.shape == ref_g.shape == (2, 16, 20, 3)
+    assert got.shape == ref_g.shape == (2, hq, wq, 3)
     np.testing.assert_allclose(got, ref_g, atol=1e-5)
     np.testing.assert_allclose(got, ref_p, atol=1e-5)
     assert TSC.sample_fwd.launches == 0  # CPU tensors never launch the kernel
+
+
+def _misaligned(coords):
+    """A contiguous copy of ``coords`` that starts 8 bytes past a 16-byte
+    boundary, as a slice of a larger buffer does."""
+    buf = torch.zeros(coords.numel() + 4)
+    start = next(i for i in (1, 2, 3, 4) if (buf.data_ptr() + 4 * i) % 16 == 8)
+    view = buf[start:start + coords.numel()].view(coords.shape)
+    view.copy_(coords)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 8
+    return view
+
+
+def test_sample_fwd_kernel_wrapper_refuses_what_it_cannot_read():
+    """K3 reads coordinates and writes its output as float4: its wrapper
+    raises for coordinates off a 16-byte boundary (and for more channels
+    than it is built for) before anything is launched."""
+    img, coords = map(torch.from_numpy, _image_and_coords(5))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        TSC.sample_fwd_cuda(img, _misaligned(coords))
+    with pytest.raises(ValueError, match="channels"):
+        TSC.sample_fwd_cuda(torch.zeros(2, 20, 24, 5), coords)
+    assert TSC.sample_fwd.launches == 0
+
+
+def test_bilinear_sample_realigns_a_view(monkeypatch):
+    """The main path's caller hands K3 coordinates on a 16-byte boundary,
+    copying a view that is not, with the same result."""
+    img, coords = map(torch.from_numpy, _image_and_coords(6))
+    seen = []
+
+    class Recording:
+        @staticmethod
+        def apply(image, xy):
+            seen.append(xy.data_ptr() % 16)
+            return TSC.sample_fwd_plain(image, xy)
+
+    monkeypatch.setattr(TW, "BilinearSample", Recording)
+    out = TW.bilinear_sample(img, _misaligned(coords))
+    assert seen == [0]
+    assert torch.equal(out, TSC.sample_fwd_plain(img, coords))
 
 
 def test_bilinear_sample_detaches_image():
