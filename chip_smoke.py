@@ -11,7 +11,9 @@ Phases, each reported on its own line:
 3. K1      — the soft-raster kernel against its plain PyTorch version on
    the main path's scene (16 views of the synthetic hand + a 1300-face
    object at 256^2, backface culling on), at gamma 1/40 (fixed-m softmax)
-   and 1/100 (streaming softmax);
+   and 1/100 (streaming softmax), and against itself with its skip turned
+   off (``far_logit=inf``), bit for bit; the tiles and pairs it evaluates
+   are counted on the host (``raster_cuda.far_faces`` at ``K1_TILE``);
 4. K2      — the soft-raster backward on the same scene at both gammas,
    with seeded noise cotangents on covered pixels, against its plain
    version evaluated in float64 (the arbiter) group by group (depth row,
@@ -52,6 +54,7 @@ import glob
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -139,6 +142,22 @@ def phase_device(torch):
     return smi
 
 
+def ptxas_summary(text: str) -> list:
+    """Per kernel entry of an ``nvcc -Xptxas -v`` log: registers, static
+    shared memory and spills, e.g. '96 registers, 0 bytes smem, spills 0/0'."""
+    out, spills = [], "?"
+    for ln in text.splitlines():
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if found:
+            spills = "/".join(found.groups())
+        found = re.search(r"Used (\d+) registers", ln)
+        if found:
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out.append(f"{found.group(1)} registers, {smem.group(1) if smem else 0} bytes smem, "
+                       f"spills {spills}")
+    return out
+
+
 def phase_build(out_dir: str) -> None:
     from hocon_torch.utils import cuda_build
 
@@ -149,8 +168,7 @@ def phase_build(out_dir: str) -> None:
     for name in cuda_build.KERNELS:
         text = cuda_build.build_log(name)
         report.append(f"== {name}\n{text}")
-        regs = [ln.strip() for ln in text.splitlines() if "registers" in ln]
-        log(f"build {name}: {per_lib.get(name, 0.0):.1f}s; ptxas: {regs[:2]}")
+        log(f"build {name}: {per_lib.get(name, 0.0):.1f}s; ptxas: {ptxas_summary(text)}")
     with open(os.path.join(out_dir, "ptxas.txt"), "w") as fh:
         fh.write("\n".join(report))
     log(f"build: {total:.1f}s wall for {len(per_lib)} libraries (parallel nvcc)")
@@ -203,18 +221,26 @@ def raster_inputs(torch, tgt, ref, faces, k, res: int):
     return coeffs, bounds, krange
 
 
-def k1_bound(torch, coeffs, bounds, krange, res: int):
-    """Least time for K1's work on this data: bytes in and out once over
-    the HBM rate, or the surviving (face, pixel) pairs times the
-    operations per pair over the f32 rate, whichever is larger."""
+def cell_pairs(torch, bounds, krange, res: int) -> int:
+    """The (face, pixel) pairs of the cells (8-row block x lane block) in
+    which K1 evaluates each chunk: every face of the chunk at every pixel."""
+    from hocon_torch.render import raster_cuda as RC
+
+    hp, wp = RC.padded_size((res, res))
+    xb = RC.lane_block(wp)
+    hits = RC.cell_hits(bounds, krange, hp, wp, xb)  # (B, NC, NYB, NXB)
+    return int(hits.sum()) * RC.FACE_CHUNK * RC.ROW_BLOCK * xb
+
+
+def k1_bound(torch, coeffs, bounds, krange, res: int, pairs: int):
+    """Least time for K1's work: bytes in and out once over the HBM rate,
+    or ``pairs`` (face, pixel) pairs times the operations per pair over the
+    f32 rate, whichever is larger."""
     from hocon_torch.render import raster_cuda as RC
 
     b, fp, r3 = coeffs.shape
     n_user = r3 // 3 - 10
     hp, wp = RC.padded_size((res, res))
-    xb = RC.lane_block(wp)
-    hits = RC.cell_hits(bounds, krange, hp, wp, xb)  # (B, NC, NYB, NXB)
-    pairs = int(hits.sum()) * RC.FACE_CHUNK * RC.ROW_BLOCK * xb
     # Per (face, pixel), counting an FMA as 2 and a transcendental or a
     # divide as 1: 7 + C affine rows at 4 each, then ~50 for the distance
     # to the triangle, the coverage sigmoid and the softmax accumulation.
@@ -222,7 +248,29 @@ def k1_bound(torch, coeffs, bounds, krange, res: int):
     nbytes = 4 * (coeffs.numel() + bounds.numel() + krange.numel()
                   + b * hp * wp * (1 + (n_user + 1) + 1 + 2))
     t_ops, t_bytes = ops / PEAK_F32, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes"), pairs
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+
+
+def k1_tiles(torch, coeffs, bounds, krange, res: int, gamma: float) -> dict:
+    """What K1 evaluates on this data, by its skip rule mirrored on the
+    host (``raster_cuda.far_faces`` with ``K1_TILE``): the (chunk, tile)
+    pairs of K1's cells, those with a live face, and the live (face, tile)
+    and (face, pixel) pairs."""
+    from hocon_torch.render import raster_cuda as RC
+
+    cfg = RC.default_config()
+    hp, wp = RC.padded_size((res, res))
+    xb = RC.lane_block(wp)
+    b, nc = bounds.shape[:2]
+    th, tw = RC.K1_TILE
+    in_cell = RC.cell_hits(bounds, krange, hp, wp, xb)  # (B, NC, NYB, NXB)
+    in_cell = in_cell.repeat_interleave(RC.ROW_BLOCK // th, 2).repeat_interleave(xb // tw, 3)
+    far = RC.far_faces(coeffs, bounds, krange, (res, res), SIGMA, cfg, tile=RC.K1_TILE,
+                       far_logit=RC.k1_far_logit(gamma))
+    live = in_cell[:, :, None] & ~far.view(b, nc, cfg.face_chunk, *in_cell.shape[2:])
+    n_live = int(live.sum())
+    return {"tiles": int(in_cell.sum()), "live_tiles": int(live.any(dim=2).sum()),
+            "live": n_live, "pairs": n_live * th * tw}
 
 
 def phase_k1(torch, device, scene, smi: str, out: dict) -> torch.Tensor:
@@ -232,11 +280,16 @@ def phase_k1(torch, device, scene, smi: str, out: dict) -> torch.Tensor:
     cfg = RC.default_config()
     worst, coords, failures = 0.0, None, []
     coeffs, bounds, krange = raster_inputs(torch, tgt, ref, faces, k, RES)
+    all_pairs = cell_pairs(torch, bounds, krange, RES)
     for gamma in GAMMAS:
         args = (coeffs, bounds, krange, (RES, RES), SIGMA, gamma, cfg)
-        # The dispatcher the slice calls.
+        # The dispatcher the slice calls, then the same kernel evaluating
+        # every pair: the skip must not change a bit.
         got = RC.raster_fwd(coeffs, bounds, krange, (RES, RES), SIGMA, gamma, cfg)
+        every = RC.raster_fwd_cuda(*args, far_logit=math.inf)
         torch.cuda.synchronize()
+        same_bits = all(torch.equal(g.view(torch.int32), e.view(torch.int32))
+                        for g, e in zip(got, every))
         want = RC.raster_fwd_plain(*args)
         want64 = RC.raster_fwd_plain(coeffs.double(), *args[1:])
         torch.cuda.synchronize()
@@ -282,15 +335,28 @@ def phase_k1(torch, device, scene, smi: str, out: dict) -> torch.Tensor:
         if not (m_err <= m_plain + ATOL / gamma and den_rel <= den_plain + ATOL / gamma):
             failures.append(f"{tag} mden from float64: m {m_err:.3g} (plain {m_plain:.3g}), "
                             f"den rel {den_rel:.3g} (plain {den_plain:.3g})")
+        if not same_bits:
+            failures.append(f"{tag}: the skip changes the output bits")
         worst = max(worst, *errs.values())
+        n = k1_tiles(torch, coeffs, bounds, krange, RES, gamma)
+        log(f"K1 gamma=1/{1 / gamma:.0f} evaluated: {n['live_tiles']} of {n['tiles']} (chunk, "
+            f"{RC.K1_TILE[0]}x{RC.K1_TILE[1]} tile) pairs with a live face, {n['live']} live "
+            f"(face, tile) pairs = {n['pairs'] / 1e6:.1f}M face-pixel pairs against "
+            f"{all_pairs / 1e6:.1f}M (host count, raster_cuda.far_faces, far_logit "
+            f"{RC.k1_far_logit(gamma):.0f}); bitwise equal to far_logit=inf: {same_bits}")
         if gamma == GAMMAS[0]:
             ms = cuda_ms(torch, lambda: RC.raster_fwd_cuda(*args), 20)
+            every_ms = cuda_ms(torch, lambda: RC.raster_fwd_cuda(*args, far_logit=math.inf), 20)
             plain_ms = cuda_ms(torch, lambda: RC.raster_fwd_plain(*args), 2)
-            bound_ms, bound_by, pairs = k1_bound(torch, coeffs, bounds, krange, RES)
+            needed, _ = RC.needed_pairs(*args)
+            bound_ms, bound_by = k1_bound(torch, coeffs, bounds, krange, RES, needed)
+            all_bound_ms, _ = k1_bound(torch, coeffs, bounds, krange, RES, all_pairs)
             coords = got[1][:, :2, :RES, :RES].permute(0, 2, 3, 1).contiguous()
-            log(f"K1 time: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound "
-                f"{bound_ms:.4f} ms ({bound_by}; {pairs / 1e6:.1f}M face-pixel pairs, "
-                f"{coeffs.shape[1]} padded faces); card {smi}")
+            log(f"K1 time: kernel {ms:.4f} ms (far_logit=inf, every pair: {every_ms:.4f} ms), "
+                f"plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+                f"{needed / 1e6:.1f}M face-pixel pairs whose contribution is not exactly 0, "
+                f"counted per pixel; over all {all_pairs / 1e6:.1f}M pairs of K1's cells "
+                f"{all_bound_ms:.4f} ms), {coeffs.shape[1]} padded faces; card {smi}")
     if failures:
         fail("; ".join(failures))
     out.update(name="raster_fwd", route="cuda", source="hocon_torch/csrc/raster_fwd.cu",
@@ -299,17 +365,15 @@ def phase_k1(torch, device, scene, smi: str, out: dict) -> torch.Tensor:
     return coords
 
 
-def k2_bound(torch, coeffs, bounds, krange, res: int):
-    """Least time for K2's work on this data: the surviving (face, pixel)
-    pairs (K1's) times K2's operations per pair over the f32 rate, or its
-    bytes in and out once over the HBM rate, whichever is larger."""
+def k2_bound(torch, coeffs, bounds, krange, res: int, pairs: int):
+    """Least time for K2's work: ``pairs`` (face, pixel) pairs times K2's
+    operations per pair over the f32 rate, or its bytes in and out once
+    over the HBM rate, whichever is larger."""
     from hocon_torch.render import raster_cuda as RC
 
     b, fp, r3 = coeffs.shape
     n_user = r3 // 3 - 10
     hp, wp = RC.padded_size((res, res))
-    xb = RC.lane_block(wp)
-    pairs = int(RC.cell_hits(bounds, krange, hp, wp, xb).sum()) * RC.FACE_CHUNK * RC.ROW_BLOCK * xb
     # Per (face, pixel), an FMA as 2, a transcendental or a divide as 1:
     # 7 + C affine rows at 4 each; 5 for each of the 10 + C rows' three
     # sums; ~140 for the distances, sigmoid, softmax chain, tie masks and
@@ -318,7 +382,7 @@ def k2_bound(torch, coeffs, bounds, krange, res: int):
     per_pixel = 1 + (n_user + 1) + 1 + 2 + 1 + (n_user + 1) + 1  # 4 outputs, 3 cotangents
     nbytes = 4 * (2 * coeffs.numel() + bounds.numel() + krange.numel() + b * hp * wp * per_pixel)
     t_ops, t_bytes = ops / PEAK_F32, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes"), pairs
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
 
 
 def k2_pairs(torch, coeffs, bounds, krange, res: int) -> dict:
@@ -474,10 +538,15 @@ def phase_k2(torch, device, scene, smi: str, out: dict) -> None:
             args = (coeffs, bounds, krange, *state, size, SIGMA, gamma, cfg)
             ms = cuda_ms(torch, lambda: RC.raster_bwd_cuda(*args), 20)
             plain_ms = cuda_ms(torch, lambda: RC.raster_bwd_plain(*args), 2)
-            bound_ms, bound_by, pairs = k2_bound(torch, coeffs, bounds, krange, RES)
+            pairs = cell_pairs(torch, bounds, krange, RES)
+            _, needed = RC.needed_pairs(coeffs, bounds, krange, size, SIGMA, gamma, cfg)
+            bound_ms, bound_by = k2_bound(torch, coeffs, bounds, krange, RES, needed)
+            all_bound_ms, _ = k2_bound(torch, coeffs, bounds, krange, RES, pairs)
             n = k2_pairs(torch, coeffs, bounds, krange, RES)
             log(f"K2 time: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
-                f"({bound_by}; {pairs / 1e6:.1f}M face-pixel pairs); card {smi}")
+                f"({bound_by}; {needed / 1e6:.1f}M face-pixel pairs whose coverage is not "
+                f"exactly 0, counted per pixel; over all {pairs / 1e6:.1f}M pairs of K1's cells "
+                f"{all_bound_ms:.4f} ms); card {smi}")
             log(f"K2 evaluated: {n['kept']} of {n['walked']} row segments "
                 f"({n['walked'] - n['kept']} skipped), {n['pairs'] / 1e6:.1f}M face-pixel pairs "
                 f"against K1's {pairs / 1e6:.1f}M; {n['lane_pairs'] / 1e6:.1f}M of them on faces "

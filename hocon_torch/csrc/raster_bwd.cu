@@ -35,29 +35,16 @@
 // and dl, dx, dss and every row's dval are +-0, so the pair changes no sum
 // (an accumulator that starts at +0 never holds -0, and x + (+-0) == x).
 // Before staging a segment each lane bounds its own face over the
-// segment's 32 pixels from the rows at the segment's two ends: per edge,
-// min |s| (0 if the sign can change) and min ov (ov = max(-u, u - L, 0) is
-// convex in u, u affine in x); c2 = s^2 + ov^2 is at least the sum of the
-// two squares. The face is far when every edge's bound, over sigma^2,
-// exceeds kFarLogit = 89 and some edge is <= 0 on the whole segment (so no
-// pixel is inside). When all 32 lanes are far (__all_sync) the warp skips
-// the segment: no loads, no pairs.
-//
-// The margin. The kernel evaluates each row per pixel in f32, fused or not;
-// the bound evaluates it at the ends. Either evaluation lies within
-// 3 * 2^-24 * mag of the exact affine value, mag = |a0| x + |a1| y + |a2|
-// at the segment's right end, and the exact value is affine along the row.
-// So every end value is widened by kRowTol * mag = 2^-20 * mag (more than
-// twice the 6 * 2^-24 * mag that the two evaluations can differ by). That
-// margin scales with the row's own coefficients, so the large rows of rim
-// slivers (a ~1/det cancellation) get a margin to match. What is left is
-// relative rounding in squaring, summing and scaling by 1 / sigma^2: a few
-// parts in 1e7, against the 0.3 % between 88.7228 and 89. The bound is
-// computed with __fmul_rn / __fadd_rn, so no contraction moves it, and
-// raster_cuda.far_segments mirrors it op for op. For finite inputs the
-// result is bitwise that of evaluating every pair.
+// segment's 32 pixels with face_far (far_bound.cuh, shared with K1: the
+// rows at the segment's two ends, each widened by 2^-20 of its magnitude)
+// at kFarLogit = 89, which leaves the 0.3 % between 88.7228 and 89 for the
+// bound's relative rounding. When all 32 lanes are far (__all_sync) the
+// warp skips the segment: no loads, no pairs. For finite inputs the result
+// is bitwise that of evaluating every pair.
 
 #include <cuda_runtime.h>
+
+#include "far_bound.cuh"
 
 namespace {
 
@@ -66,45 +53,7 @@ constexpr int kTileW = 32;    // columns per row segment
 constexpr int kFaces = 32;    // faces per chunk: one per lane
 constexpr int kAttrs = 2;     // user attribute channels C (reference-view x, y)
 constexpr float kFarLogit = 89.0f;  // expf(89) > FLT_MAX: the sigmoid is exactly 0
-constexpr float kRowTol = 0x1p-20f;  // row evaluation margin per unit of magnitude
 constexpr unsigned kAllLanes = 0xffffffffu;
-
-// Row (a0, a1, a2) at the ends xa < xb of a segment on row y >= 0: the
-// smaller and larger end value and the margin that covers any f32
-// evaluation at a pixel between them.
-struct RowSpan {
-  float lo, hi, tol;
-};
-
-__device__ __forceinline__ RowSpan row_span(float a0, float a1, float a2, float xa, float xb,
-                                            float y) {
-  const float base = __fadd_rn(__fmul_rn(a1, y), a2);
-  const float va = __fadd_rn(__fmul_rn(a0, xa), base);
-  const float vb = __fadd_rn(__fmul_rn(a0, xb), base);
-  const float mag =
-      __fadd_rn(__fadd_rn(__fmul_rn(fabsf(a0), xb), __fmul_rn(fabsf(a1), y)), fabsf(a2));
-  return {fminf(va, vb), fmaxf(va, vb), __fmul_rn(mag, kRowTol)};
-}
-
-// True when the face's coverage sigmoid, as evaluated below, is exactly 0
-// at every pixel centre (x, y) with xa <= x <= xb.
-template <int R3>
-__device__ __forceinline__ bool face_far(const float (&a)[R3], float xa, float xb, float y,
-                                         float inv_sigma_sq) {
-  float lb = __int_as_float(0x7f800000);  // +inf
-  bool outside = false;
-#pragma unroll
-  for (int e = 0; e < 3; ++e) {
-    const RowSpan s = row_span(a[3 * e], a[3 * e + 1], a[3 * e + 2], xa, xb, y);
-    const RowSpan u = row_span(a[3 * (3 + e)], a[3 * (3 + e) + 1], a[3 * (3 + e) + 2], xa, xb, y);
-    const float len = a[3 * (6 + e) + 2];
-    const float s_lb = fmaxf(__fsub_rn(fmaxf(s.lo, -s.hi), s.tol), 0.0f);
-    const float ov_lb = fmaxf(__fsub_rn(fmaxf(-u.hi, __fsub_rn(u.lo, len)), u.tol), 0.0f);
-    lb = fminf(lb, __fadd_rn(__fmul_rn(s_lb, s_lb), __fmul_rn(ov_lb, ov_lb)));
-    outside = outside || __fadd_rn(s.hi, s.tol) <= 0.0f;
-  }
-  return outside && __fmul_rn(lb, inv_sigma_sq) > kFarLogit;
-}
 
 template <int C>
 __global__ void __launch_bounds__(kFaces * kRowBlock)
@@ -162,7 +111,8 @@ raster_bwd_kernel(const int* __restrict__ krange,    // (B, NYB, 2)
       for (int col0 = xi * lane_block; col0 < (xi + 1) * lane_block; col0 += kTileW) {
         const float xa = static_cast<float>(col0) + 0.5f;
         const float xb = static_cast<float>(col0 + kTileW - 1) + 0.5f;
-        if (__all_sync(kAllLanes, face_far(a, xa, xb, y, inv_sigma_sq))) continue;
+        const bool far = hocon_far::face_far(a, xa, xb, y, y, inv_sigma_sq, kFarLogit);
+        if (__all_sync(kAllLanes, far)) continue;
         __syncwarp();  // this warp's reads of its previous segment are done
         {
           // Lane l stages pixel (row y, column col0 + l) in this warp's slots.

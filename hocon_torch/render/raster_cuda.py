@@ -17,8 +17,10 @@ pairs the two as one ``torch.autograd.Function``, as the reference's
 ``hocon/render/raster_pallas.py:_raster_kernel`` and ``_raster_bwd_kernel``;
 their source notes say what bounds them on the card and how their designs
 answer that. ``far_faces`` / ``far_segments`` mirror, op for op, the rule
-by which K2 skips the row segments where every face's coverage is exactly
-0; only the tests and ``chip_smoke.py`` call them.
+by which both kernels skip the (face, tile) pairs that add exactly 0 (K2's
+32-pixel row segments, K1's 8 x 8 tiles), and ``needed_pairs`` counts the
+pairs that do not, pixel by pixel; only the tests and ``chip_smoke.py``
+call them.
 """
 
 from __future__ import annotations
@@ -50,13 +52,18 @@ _BIG_NEG = -1e4  # inert-face edge constant; its square stays in f32 range
 # the background weight exp(-1 / gamma) stay inside f32 range.
 FIXED_M_MAX_INV_GAMMA = 60.0
 KERNEL_ATTRS = 2  # attribute channels the CUDA kernels are built for
-# K2's skip rule (``far_faces``): a face is far from a 32-pixel row segment
-# when its logits there are below -FAR_LOGIT (expf overflows, so the f32
-# coverage sigmoid is exactly 0); each row's end values are widened by
-# ROW_TOL times the row's magnitude. Both as in hocon_torch/csrc/raster_bwd.cu.
+# The kernels' skip rule (``far_faces``, hocon_torch/csrc/far_bound.cuh): a
+# face is far from a tile of pixels when its logits there are below
+# -far_logit and no pixel is inside; each row's corner values are widened by
+# ROW_TOL times the row's magnitude. K2 tests 1 x SEGMENT row segments at
+# FAR_LOGIT (expf overflows, so the f32 coverage sigmoid is exactly 0); K1
+# tests K1_TILE tiles at ``k1_far_logit(gamma)`` (its source note derives
+# both thresholds).
 SEGMENT = 32
 FAR_LOGIT = 89.0
 ROW_TOL = 2.0**-20
+K1_TILE = (8, 8)
+K1_FAR_LOGIT = 110.0
 
 
 class RasterConfig(NamedTuple):
@@ -244,6 +251,23 @@ def _chunk_cells(coeffs, bounds, krange, image_size, config):
                           ys_all[ys][None, None, :, None])
 
 
+def _face_logits(cell: _ChunkCells, inv_sigma_sq: float) -> torch.Tensor:
+    """Coverage logits of the chunk's faces at the cell's pixels (B, FC,
+    rows, cols): the signed squared distance to the triangle over sigma^2,
+    as the reference kernel evaluates it."""
+    row, a = cell.row, cell.a
+    s = [row(0), row(1), row(2)]
+    d_in = torch.minimum(torch.minimum(s[0], s[1]), s[2])
+    dist2 = None
+    for e in range(3):
+        u = row(3 + e)
+        length = a[:, :, 6 + e, 2, None, None]
+        ov = torch.clamp(torch.maximum(-u, u - length), min=0.0)
+        d2 = s[e] * s[e] + ov * ov
+        dist2 = d2 if dist2 is None else torch.minimum(dist2, d2)
+    return torch.where(d_in > 0, d_in * d_in, -dist2) * inv_sigma_sq
+
+
 def raster_fwd_plain(
     coeffs: torch.Tensor,
     bounds: torch.Tensor,
@@ -283,18 +307,8 @@ def raster_fwd_plain(
     num = torch.zeros((b, n_user, hp, wp), device=dev, dtype=f32)
 
     for cell in _chunk_cells(coeffs, bounds, krange, image_size, config):
-        ys, xs, take, a, row = cell.ys, cell.xs, cell.take, cell.a, cell.row
-        s = [row(0), row(1), row(2)]
-        d_in = torch.minimum(torch.minimum(s[0], s[1]), s[2])
-        dist2 = None
-        for e in range(3):
-            u = row(3 + e)
-            length = a[:, :, 6 + e, 2, None, None]
-            ov = torch.clamp(torch.maximum(-u, u - length), min=0.0)
-            d2 = s[e] * s[e] + ov * ov
-            dist2 = d2 if dist2 is None else torch.minimum(dist2, d2)
-        signed_sq = torch.where(d_in > 0, d_in * d_in, -dist2)
-        logits = signed_sq * inv_sigma_sq
+        ys, xs, take, row = cell.ys, cell.xs, cell.take, cell.row
+        logits = _face_logits(cell, inv_sigma_sq)
         zbar = torch.clamp(row(9), 0.0, 1.0)
 
         def put(acc, value):  # update only the cells that evaluate chunk k
@@ -340,13 +354,29 @@ def _kernel_lib() -> ctypes.CDLL:
 
     lib = cuda_build.load("raster_fwd")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.hocon_raster_fwd.argtypes = [p] * 7 + [i] * 8 + [f] * 4 + [i, p]
+    lib.hocon_raster_fwd.argtypes = [p] * 7 + [i] * 8 + [f] * 5 + [i, p]
     lib.hocon_raster_fwd.restype = i
     return lib
 
 
-def raster_fwd_cuda(coeffs, bounds, krange, image_size, sigma, gamma, config):
-    """Launch K1 on CUDA tensors (the interface of ``raster_fwd_plain``)."""
+def k1_far_logit(gamma: float) -> float:
+    """K1's threshold: a pair whose logits are below minus this adds exactly
+    nothing to K1's sums. 110 on the fixed-m path (expf is exactly 0 below
+    ~-103.97); 110 + 1/gamma on the streaming one, whose weights are
+    relative to a running maximum that starts at the background's
+    -1/gamma."""
+    fixed_m = (1.0 / gamma) <= FIXED_M_MAX_INV_GAMMA
+    return K1_FAR_LOGIT if fixed_m else K1_FAR_LOGIT + 1.0 / gamma
+
+
+def raster_fwd_cuda(coeffs, bounds, krange, image_size, sigma, gamma, config, *,
+                    far_logit=None):
+    """Launch K1 on CUDA tensors (the interface of ``raster_fwd_plain``).
+
+    ``far_logit`` (default ``k1_far_logit(gamma)``) is the kernel's skip
+    threshold; ``math.inf`` evaluates every pair. Only ``chip_smoke.py``
+    and ``tools/`` pass it, to show that the two give the same bits.
+    """
     b, fp, r3 = coeffs.shape
     n_user = r3 // 3 - N_GEOM_ROWS
     hp, wp = padded_size(image_size)
@@ -356,10 +386,11 @@ def raster_fwd_cuda(coeffs, bounds, krange, image_size, sigma, gamma, config):
             f"raster_fwd kernel is built for {KERNEL_ATTRS} attribute channels "
             f"(the warp's reference-pixel coordinates), got {n_user}"
         )
-    if fp != nc * config.face_chunk:
-        raise ValueError(f"{fp} padded faces is not {nc} chunks of {config.face_chunk}")
-    if config.face_chunk * r3 * 4 > 48 * 1024:
-        raise ValueError("raster_fwd: a chunk's coefficients exceed 48 KB of shared memory")
+    if config.face_chunk != FACE_CHUNK or fp != nc * FACE_CHUNK:
+        raise ValueError(
+            f"raster_fwd kernel is built for chunks of {FACE_CHUNK} faces, got "
+            f"{fp} padded faces in {nc} chunks of {config.face_chunk}"
+        )
     if tuple(krange.shape) != (b, hp // ROW_BLOCK, 2):
         raise ValueError(f"krange shape {tuple(krange.shape)} for {b} x {hp} rows")
     for name, t, dtype in (
@@ -369,6 +400,10 @@ def raster_fwd_cuda(coeffs, bounds, krange, image_size, sigma, gamma, config):
     ):
         if t.dtype != dtype or not t.is_contiguous() or t.device != coeffs.device:
             raise ValueError(f"raster_fwd: {name} must be contiguous {dtype} on {coeffs.device}")
+    if coeffs.data_ptr() % 16:
+        raise ValueError("raster_fwd: coeffs must start on a 16-byte boundary (float4 loads)")
+    if far_logit is None:
+        far_logit = k1_far_logit(gamma)
     opts = dict(device=coeffs.device, dtype=torch.float32)
     sil = torch.empty((b, hp, wp), **opts)
     attr = torch.empty((b, n_user + 1, hp, wp), **opts)
@@ -380,7 +415,7 @@ def raster_fwd_cuda(coeffs, bounds, krange, image_size, sigma, gamma, config):
         sil.data_ptr(), attr.data_ptr(), vis.data_ptr(), mden.data_ptr(),
         b, hp, wp, nc, fp, n_user, config.face_chunk,
         lane_block(wp, config.lane_block),
-        1.0 / (sigma * sigma), 1.0 / gamma, -1.0 / gamma, math.exp(-1.0 / gamma),
+        1.0 / (sigma * sigma), 1.0 / gamma, -1.0 / gamma, math.exp(-1.0 / gamma), far_logit,
         int((1.0 / gamma) <= FIXED_M_MAX_INV_GAMMA), stream,
     )
     if err != 0:
@@ -528,43 +563,50 @@ def raster_bwd_plain(
     return dcoeffs.reshape(b, fp, r3)
 
 
-def _row_span(a, i, xa, xb, y):
-    """Row i of the faces ``a`` (B, FC, R, 3) at the ends ``xa`` < ``xb``
-    of row segments on rows ``y``: (lo, hi, tol), K2's ``row_span`` op for
-    op in the dtype of ``a``."""
+def _row_span(a, i, xa, xb, ya, yb):
+    """Row i of the faces ``a`` (B, FC, R, 3) over the rectangles of pixel
+    centres [xa, xb] x [ya, yb] (0 <= xa <= xb, 0 <= ya <= yb): (lo, hi,
+    tol), ``row_span`` of hocon_torch/csrc/far_bound.cuh op for op in the
+    dtype of ``a``."""
     a0, a1, a2 = (a[:, :, i, j, None, None] for j in range(3))
-    base = a1 * y + a2
-    va = a0 * xa + base
-    vb = a0 * xb + base
-    mag = (a0.abs() * xb + a1.abs() * y) + a2.abs()
-    return torch.fmin(va, vb), torch.fmax(va, vb), mag * ROW_TOL
+    base_a = a1 * ya + a2
+    base_b = a1 * yb + a2
+    corners = (a0 * xa + base_a, a0 * xb + base_a, a0 * xa + base_b, a0 * xb + base_b)
+    lo = torch.fmin(torch.fmin(corners[0], corners[1]), torch.fmin(corners[2], corners[3]))
+    hi = torch.fmax(torch.fmax(corners[0], corners[1]), torch.fmax(corners[2], corners[3]))
+    mag = (a0.abs() * xb + a1.abs() * yb) + a2.abs()
+    return lo, hi, mag * ROW_TOL
 
 
-def far_faces(coeffs, bounds, krange, image_size, sigma, config):
-    """(B, Fp, Hp, Wp / 32) bool: K2's skip rule for each face and 32-pixel
-    row segment of the cells that K1 evaluated its chunk in (False
-    elsewhere), computed op for op as the kernel computes it.
+def far_faces(coeffs, bounds, krange, image_size, sigma, config, tile=(1, SEGMENT),
+              far_logit=FAR_LOGIT):
+    """(B, Fp, Hp / th, Wp / tw) bool for ``tile`` = (th, tw): the skip rule
+    of hocon_torch/csrc/far_bound.cuh for each face and tile of the cells
+    that K1 evaluated its chunk in (False elsewhere), computed op for op as
+    the kernels compute it. K2's rule is the default, 1 x 32 row segments
+    at ``FAR_LOGIT``; K1's is ``K1_TILE`` at ``k1_far_logit(gamma)``.
 
-    A face is far from a segment when, from its rows at the segment's two
-    ends widened by ``ROW_TOL`` times each row's magnitude, every edge's
-    lower bound on s^2 + ov^2 over sigma^2 exceeds ``FAR_LOGIT`` and some
-    edge is <= 0 over the whole segment: its f32 coverage sigmoid is then
-    exactly 0 at every pixel of the segment. Only the tests and
-    ``chip_smoke.py`` call this; the kernel decides on the card.
+    A face is far from a tile when, from its rows at the tile's corners
+    widened by ``ROW_TOL`` times each row's magnitude, every edge's lower
+    bound on s^2 + ov^2 over sigma^2 exceeds ``far_logit`` and some edge is
+    <= 0 over the whole tile (no pixel is inside). Only the tests and
+    ``chip_smoke.py`` call this; the kernels decide on the card.
     """
     b, fp, _ = coeffs.shape
     hp, wp = padded_size(image_size)
+    th, tw = tile
     fc = config.face_chunk
     inv_sigma_sq = torch.tensor(1.0 / (sigma * sigma), dtype=coeffs.dtype, device=coeffs.device)
     zero = torch.zeros((), dtype=coeffs.dtype, device=coeffs.device)
-    far = torch.zeros((b, fp, hp, wp // SEGMENT), dtype=torch.bool, device=coeffs.device)
+    far = torch.zeros((b, fp, hp // th, wp // tw), dtype=torch.bool, device=coeffs.device)
     for cell in _chunk_cells(coeffs, bounds, krange, image_size, config):
-        a, y = cell.a, cell.y
-        xa, xb = cell.x[..., ::SEGMENT], cell.x[..., SEGMENT - 1::SEGMENT]
+        a = cell.a
+        xa, xb = cell.x[..., ::tw], cell.x[..., tw - 1::tw]
+        ya, yb = cell.y[..., ::th, :], cell.y[..., th - 1::th, :]
         lb, outside = None, None
         for e in range(3):
-            s_lo, s_hi, s_tol = _row_span(a, e, xa, xb, y)
-            u_lo, u_hi, u_tol = _row_span(a, 3 + e, xa, xb, y)
+            s_lo, s_hi, s_tol = _row_span(a, e, xa, xb, ya, yb)
+            u_lo, u_hi, u_tol = _row_span(a, 3 + e, xa, xb, ya, yb)
             length = a[:, :, 6 + e, 2, None, None]
             s_lb = torch.fmax(torch.fmax(s_lo, -s_hi) - s_tol, zero)
             ov_lb = torch.fmax(torch.fmax(-u_hi, u_lo - length) - u_tol, zero)
@@ -572,10 +614,11 @@ def far_faces(coeffs, bounds, krange, image_size, sigma, config):
             out_e = s_hi + s_tol <= 0
             lb = lb_e if lb is None else torch.fmin(lb, lb_e)
             outside = out_e if outside is None else outside | out_e
-        take = cell.take[:, None, :, ::SEGMENT]  # the cells that evaluate the chunk
-        segs = slice(cell.xs.start // SEGMENT, cell.xs.stop // SEGMENT)
-        far[:, cell.k * fc:(cell.k + 1) * fc, cell.ys, segs] = (
-            outside & (lb * inv_sigma_sq > FAR_LOGIT) & take)
+        take = cell.take[:, None, ::th, ::tw]  # the cells that evaluate the chunk
+        rows = slice(cell.ys.start // th, cell.ys.stop // th)
+        cols = slice(cell.xs.start // tw, cell.xs.stop // tw)
+        far[:, cell.k * fc:(cell.k + 1) * fc, rows, cols] = (
+            outside & (lb * inv_sigma_sq > far_logit) & take)
     return far
 
 
@@ -586,6 +629,42 @@ def far_segments(coeffs, bounds, krange, image_size, sigma, config):
     b, fp, hp, n_seg = far.shape
     fc = config.face_chunk
     return far.reshape(b, fp // fc, fc, hp, n_seg).all(dim=2)
+
+
+@torch.no_grad()
+def needed_pairs(coeffs, bounds, krange, image_size, sigma, gamma, config) -> tuple[int, int]:
+    """Of the (face, pixel) pairs in the cells that K1 evaluates each chunk
+    in, those whose f32 contribution is not exactly zero, counted per pixel
+    from the plain version's own logits, with no tile rule: (K1's, K2's).
+
+    K1's: on the fixed-m path, 1 - p != 1 or the weight != 0; on the
+    streaming path, log(1 - p) != 0 or the weight relative to the
+    background exp(l - l_bg) != 0 (a larger running maximum only shrinks
+    it). K2's: the coverage sigmoid 1 / (1 + exp(-logits)) != 0, without
+    which every term of the pair's gradient is +-0. Only ``chip_smoke.py``
+    calls this, for the kernels' bounds.
+    """
+    inv_sigma_sq = 1.0 / (sigma * sigma)
+    inv_gamma = 1.0 / gamma
+    k1 = k2 = 0
+    for cell in _chunk_cells(coeffs, bounds, krange, image_size, config):
+        logits = _face_logits(cell, inv_sigma_sq)
+        zbar = torch.clamp(cell.row(9), 0.0, 1.0)
+        if (1.0 / gamma) <= FIXED_M_MAX_INV_GAMMA:
+            e2 = torch.exp(-torch.abs(logits))
+            rr = 1.0 / (1.0 + e2)
+            pos = logits >= 0
+            sig = torch.where(pos, rr, rr * e2)
+            oms = torch.where(pos, rr * e2, rr)
+            live = (oms != 1.0) | (sig * torch.exp(-zbar * inv_gamma) != 0.0)
+        else:
+            sp = torch.nn.functional.softplus(-logits)
+            l = -sp - zbar * inv_gamma
+            live = (logits + sp != 0.0) | (torch.exp(l + inv_gamma) != 0.0)
+        take = cell.take[:, None]
+        k1 += int((live & take).sum())
+        k2 += int(((1.0 / (1.0 + torch.exp(-logits)) != 0.0) & take).sum())
+    return k1, k2
 
 
 @functools.cache

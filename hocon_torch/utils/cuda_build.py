@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 into its own shared library, loaded with ``ctypes`` (no PyTorch headers, so
 a build takes seconds). Libraries land in ``build/hocon_torch/`` beside the
-package, named by a hash of the source and the flags, so an edited source
-rebuilds and an unchanged one is reused. ``build()`` starts one ``nvcc``
-per missing library, all at once, and waits for them together.
+package, named by a hash of the source, the shared headers and the flags,
+so an edited source or header rebuilds and an unchanged one is reused.
+``build()`` starts one ``nvcc`` per missing library, all at once, and waits
+for them together.
 """
 
 from __future__ import annotations
@@ -46,8 +47,11 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
+    """Where the library built from ``csrc/<name>.cu`` (and the shared
+    ``csrc/*.cuh`` headers) lives."""
     digest = hashlib.sha1((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
