@@ -8,31 +8,40 @@ Phases, each reported on its own line:
 1. device  — the card (``nvidia-smi`` name and power limit) and the TF32
    switches, set off explicitly so f32 matmuls and convolutions are f32;
 2. build   — nvcc builds every kernel from ``hocon_torch/csrc`` in parallel;
-3. K1      — the soft-raster kernel against its plain PyTorch version on
-   the main path's scene (16 views of the synthetic hand + a 1300-face
-   object at 256^2, backface culling on), at gamma 1/40 (fixed-m softmax)
-   and 1/100 (streaming softmax), and against itself with its skip turned
+3. data    — the data path of ``bench_torch.py`` (its ``dataset_kwargs``):
+   ``get_dataset`` renders the synthetic dataset (32 frames at 256^2, hand
+   + 1300-face object) on the card through K1 at 3 colour channels, with
+   K1's counter zeroed just before and read just after; K1 at C = 3 is
+   checked on that render's own inputs (against its plain version, bit
+   for bit against ``far_logit=inf``, and against float64 on the values
+   that rim slivers do not move) and timed; the port's render of the
+   verts stored with the TPU's frames (``TPU_FRAMES``) is compared with
+   those frames, for the record; then one ``BatchLoader`` batch of 16
+   pairs, which the slice and train phases use;
+4. K1      — the soft-raster kernel against its plain PyTorch version on
+   the warp's scene (16 views of the synthetic hand + a 1300-face object
+   at 256^2, backface culling on), at gamma 1/40 (fixed-m softmax) and
+   1/100 (streaming softmax), and against itself with its skip turned
    off (``far_logit=inf``), bit for bit; the tiles and pairs it evaluates
    are counted on the host (``raster_cuda.far_faces`` at ``K1_TILE``);
-4. K2      — the soft-raster backward on the same scene at both gammas,
+5. K2      — the soft-raster backward on the same scene at both gammas,
    with seeded noise cotangents on covered pixels, against its plain
    version evaluated in float64 (the arbiter) group by group (depth row,
    attribute rows, edge rows chained to the vertices), run twice to show
    the same bits; faults planted in its output must fail the check; the
    row segments and pairs it evaluates under its skip rule are counted on
    the host (``raster_cuda.far_faces``) against K1's pairs;
-5. K3      — the bilinear sampler against its plain version at the
-   rendered coordinates, plus coordinates far outside the image and a
-   query count that is not a multiple of 4; timed in turns with
-   ``grid_sample``, cold (inputs cycled past the L2) and L2-hot;
-6. K4      — the sampler's coordinate gradient against its plain version
+6. K3      — the bilinear sampler against its plain version on the
+   rendered frames at K1's coordinates, plus coordinates far outside the
+   image and a query count that is not a multiple of 4; timed in turns
+   with ``grid_sample``, cold (inputs cycled past the L2) and L2-hot;
+7. K4      — the sampler's coordinate gradient against its plain version
    at the same coordinates plus integer ones;
-7. slice   — ``warp_loss`` under ``torch.no_grad`` at full width (HOCNet
-   with a ResNet-18 trunk in bf16 autocast, 16 frame pairs of 256^2 uint8
-   frames from ``assets/synth_cache``, hand + 1300-face object), then
+8. slice   — ``warp_loss`` under ``torch.no_grad`` at full width (HOCNet
+   with a ResNet-18 trunk in bf16 autocast, the data phase's batch), then
    ``eval_step``; launch counters are zeroed just before and read just
    after, and every loss term must be finite with a non-empty mask;
-8. train   — ``make_warp_train_step`` with Adam on the same batch: one
+9. train   — ``make_warp_train_step`` with Adam on the same batch: one
    warm-up step, then timed steps with all four counters zeroed just
    before; every kernel must launch every step, every term and the
    gradient norm be finite, and the loss fall over 8 steps; one step is
@@ -50,7 +59,6 @@ Longer diagnostics (compiler register report, profiler tables) go to
 
 from __future__ import annotations
 
-import glob
 import json
 import math
 import os
@@ -65,6 +73,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 RES = 256
 PAIRS = 16
 OBJ_FACES = 1280  # requested faces of the UV sphere: 1300 after rounding
+# The JAX bench's frames, rendered on the TPU by the Pallas kernel (its
+# cache key: 1280-face object, 2 x 16 frames, 256^2, seed 0); compared with
+# the port's render of the same verts for the record only.
+TPU_FRAMES = os.path.join("assets", "synth_cache", "synth-e6ed93a93e4f739e.npz")
 SIGMA = 1.0
 GAMMAS = (1.0 / 40.0, 1.0 / 100.0)  # fixed-m path, streaming path
 TIMED_FORWARDS = 5
@@ -81,6 +93,10 @@ PEAK_F32 = 67e12
 # Tolerances of kernel vs plain version (same inputs, both f32 on the card).
 SIL_ATOL = 2e-5  # the reference's silhouette parity bar
 ATOL = 2e-4  # depth / vis bar of the reference
+ATTR_RTOL = 1e-4  # relative, for colours extrapolated past 1 (tests/test_torch_raster.py)
+# Rim slivers: faces with |2 x area| below this share of their longest
+# edge squared, whose plane rows f32 gets wrong in every evaluation order.
+SLIVER_FRAC = 0.05
 SAMPLE_ATOL = 1e-5  # lerps of texels in [0, 1]
 # K2 against float64, group by group (``k2_groups``): max abs error at most
 # a share of the group's own max |d|, and a cosine. Measured on the H100
@@ -177,7 +193,7 @@ def phase_build(out_dir: str) -> None:
 def make_scene(torch, device, pairs: int = PAIRS, res: int = RES, seed: int = 0):
     """Camera-space hand + object meshes for ``pairs`` target views, their
     reference-view copies, faces (B, F, 3), and the synthetic intrinsics."""
-    from hocon_torch.data.synthetic import OBJ_SCALE, synthetic_camintr, uv_sphere
+    from hocon_torch.data.synthetic import OBJ_OFFSET, OBJ_SCALE, synthetic_camintr, uv_sphere
     from hocon_torch.geometry.mano import mano_forward, synthetic_mano_model
 
     mano = synthetic_mano_model(0, device=device)
@@ -189,7 +205,7 @@ def make_scene(torch, device, pairs: int = PAIRS, res: int = RES, seed: int = 0)
         v, j = mano_forward(mano, *(torch.from_numpy(x).to(device) for x in
                                     (pose, np.zeros((pairs, 10), np.float32), root, trans)),
                             scale_mm=False)
-        obj = obj_can[None] + j[:, :1] + torch.tensor([0.0, 0.04, 0.02], device=device)
+        obj = obj_can[None] + j[:, :1] + torch.from_numpy(OBJ_OFFSET).to(device)
         return torch.cat([v, obj], dim=1)
 
     pose = (rng.standard_normal((pairs, 15)) * 0.3).astype(np.float32)
@@ -251,7 +267,7 @@ def k1_bound(torch, coeffs, bounds, krange, res: int, pairs: int):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
 
 
-def k1_tiles(torch, coeffs, bounds, krange, res: int, gamma: float) -> dict:
+def k1_tiles(torch, coeffs, bounds, krange, res: int, gamma: float, sigma: float = SIGMA) -> dict:
     """What K1 evaluates on this data, by its skip rule mirrored on the
     host (``raster_cuda.far_faces`` with ``K1_TILE``): the (chunk, tile)
     pairs of K1's cells, those with a live face, and the live (face, tile)
@@ -265,12 +281,127 @@ def k1_tiles(torch, coeffs, bounds, krange, res: int, gamma: float) -> dict:
     th, tw = RC.K1_TILE
     in_cell = RC.cell_hits(bounds, krange, hp, wp, xb)  # (B, NC, NYB, NXB)
     in_cell = in_cell.repeat_interleave(RC.ROW_BLOCK // th, 2).repeat_interleave(xb // tw, 3)
-    far = RC.far_faces(coeffs, bounds, krange, (res, res), SIGMA, cfg, tile=RC.K1_TILE,
+    far = RC.far_faces(coeffs, bounds, krange, (res, res), sigma, cfg, tile=RC.K1_TILE,
                        far_logit=RC.k1_far_logit(gamma))
     live = in_cell[:, :, None] & ~far.view(b, nc, cfg.face_chunk, *in_cell.shape[2:])
     n_live = int(live.sum())
     return {"tiles": int(in_cell.sum()), "live_tiles": int(live.any(dim=2).sum()),
             "live": n_live, "pairs": n_live * th * tw}
+
+
+def check_k1(torch, args, tag: str, moved=None) -> tuple[list, float, bool, tuple]:
+    """K1 through its dispatcher on the kernel interface ``args``, held
+    against its plain version (silhouette, visibility) and, for the
+    attribute and depth channels and (m, den), a float64 evaluation of the
+    plain version; and bit for bit against itself with its skip turned off
+    (``far_logit=inf``). With ``moved`` (bool, the shape of the attribute
+    block: the values that rim slivers move, ``sliver_moved``), the
+    attribute and depth channels are held on the values that are not
+    moved instead: no further from float64 than the f32 plain version,
+    plus the bar. Returns (failures, worst error, same bits, output)."""
+    from hocon_torch.render import raster_cuda as RC
+
+    coeffs, gamma = args[0], args[5]
+    got = RC.raster_fwd(*args)  # the dispatcher the main path calls
+    every = RC.raster_fwd_cuda(*args, far_logit=math.inf)
+    torch.cuda.synchronize()
+    same_bits = all(torch.equal(g.view(torch.int32), e.view(torch.int32))
+                    for g, e in zip(got, every))
+    want = RC.raster_fwd_plain(*args)
+    want64 = RC.raster_fwd_plain(coeffs.double(), *args[1:])
+    torch.cuda.synchronize()
+    n_user = got[1].shape[1] - 1  # attr holds C attribute channels, then zbar
+    errs = {name: float((g - w).abs().max()) for name, g, w in (
+        ("sil", got[0], want[0]), ("vis", got[2], want[2]))}
+    # Rows of rim sliver faces make the attribute block sensitive to
+    # f32 rounding, and the plain version (no FMAs) rounds worse than
+    # the kernel: its depth lands up to ~8e-4 from a float64 evaluation
+    # of the same coefficients, its pixel coordinates up to ~0.6 px.
+    # So float64 is the arbiter. Depth, in [0, 1], must lie within the
+    # bar of it; each attribute channel may be no further from it than
+    # the f32 plain version's same channel is, plus the bar.
+    def from64(x, c):
+        return float((x[1][:, c] - want64[1][:, c]).abs().max())
+
+    if moved is not None:
+        keep = ~moved
+        err64 = ((got[1] - want64[1]).abs() - ATTR_RTOL * want64[1].abs())[keep]
+        plain64 = ((want[1] - want64[1]).abs() - ATTR_RTOL * want64[1].abs())[keep]
+        errs["unmoved"], plain_unmoved = float(err64.max()), float(plain64.max())
+        log(f"{tag}: attribute and depth values not moved by rim slivers "
+            f"({float(keep.double().mean()):.4f} of them), max |err| - {ATTR_RTOL} |x| from "
+            f"float64: kernel {errs['unmoved']:.3g}, plain f32 {plain_unmoved:.3g} "
+            f"(bar: plain + {ATOL})")
+    errs["depth"], plain_depth = from64(got, n_user), from64(want, n_user)
+    attr_errs = [(from64(got, c), from64(want, c)) for c in range(n_user)]
+    errs["attrs"] = max(e for e, _ in attr_errs)
+    plain_attrs = max(p for _, p in attr_errs)
+    # m and log(den) carry zbar / gamma: the depth bar times 1/gamma,
+    # with the same float64 arbiter as the attributes.
+    def mden_errs(x):
+        m = float((x[:, 0] - want64[3][:, 0]).abs().max())
+        den = float(((x[:, 1] - want64[3][:, 1]).abs() / want64[3][:, 1]).max())
+        return m, den
+
+    (m_err, den_rel), (m_plain, den_plain) = mden_errs(got[3]), mden_errs(want[3])
+    sil_cov = float((want[0] > 1e-3).float().mean())
+    log(f"{tag} ({'fixed-m' if 1 / gamma <= 60 else 'streaming'}, C={n_user}): "
+        f"max abs err from plain: sil {errs['sil']:.3g} vis {errs['vis']:.3g}; "
+        f"from float64: depth {errs['depth']:.3g} (plain f32 {plain_depth:.3g}) "
+        f"attrs {errs['attrs']:.3g} (plain f32 {plain_attrs:.3g}) "
+        f"m {m_err:.3g} (plain {m_plain:.3g}) den rel {den_rel:.3g} "
+        f"(plain {den_plain:.3g}); covered share {sil_cov:.3f}")
+    failures = []
+    bars = (("sil", SIL_ATOL), ("vis", ATOL))
+    bars += (("depth", ATOL),) if moved is None else (("unmoved", plain_unmoved + ATOL),)
+    for name, bar in bars:
+        if not errs[name] <= bar:
+            failures.append(f"{tag} {name}: max err {errs[name]:.3g} > {bar:.3g}")
+    for c, (e, p) in enumerate(attr_errs if moved is None else []):
+        if not e <= p + ATOL:
+            failures.append(f"{tag} attr {c}: kernel {e:.3g} from float64, plain f32 {p:.3g}")
+    if not (m_err <= m_plain + ATOL / gamma and den_rel <= den_plain + ATOL / gamma):
+        failures.append(f"{tag} mden from float64: m {m_err:.3g} (plain {m_plain:.3g}), "
+                        f"den rel {den_rel:.3g} (plain {den_plain:.3g})")
+    if not same_bits:
+        failures.append(f"{tag}: the skip changes the output bits")
+    worst = max(v for k, v in errs.items() if moved is None or k not in ("depth", "attrs"))
+    return failures, worst, same_bits, got
+
+
+def time_k1(torch, args, res: int, smi: str, tag: str) -> dict:
+    """K1's time (skip on and off), its plain version's and its bound from
+    the pairs these inputs need (``raster_cuda.needed_pairs``)."""
+    from hocon_torch.render import raster_cuda as RC
+
+    coeffs, bounds, krange = args[:3]
+    ms = cuda_ms(torch, lambda: RC.raster_fwd_cuda(*args), 20)
+    every_ms = cuda_ms(torch, lambda: RC.raster_fwd_cuda(*args, far_logit=math.inf), 20)
+    plain_ms = cuda_ms(torch, lambda: RC.raster_fwd_plain(*args), 2)
+    needed, _ = RC.needed_pairs(*args)
+    all_pairs = cell_pairs(torch, bounds, krange, res)
+    bound_ms, bound_by = k1_bound(torch, coeffs, bounds, krange, res, needed)
+    all_bound_ms, _ = k1_bound(torch, coeffs, bounds, krange, res, all_pairs)
+    log(f"{tag} time: kernel {ms:.4f} ms (far_logit=inf, every pair: {every_ms:.4f} ms), "
+        f"plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+        f"{needed / 1e6:.1f}M face-pixel pairs whose contribution is not exactly 0, "
+        f"counted per pixel; over all {all_pairs / 1e6:.1f}M pairs of K1's cells "
+        f"{all_bound_ms:.4f} ms), {coeffs.shape[0]} views, {coeffs.shape[1]} padded faces; "
+        f"card {smi}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def k1_evaluated_line(torch, args, res: int, tag: str, same_bits: bool) -> str:
+    from hocon_torch.render import raster_cuda as RC
+
+    coeffs, bounds, krange, _, sigma, gamma = args[:6]
+    n = k1_tiles(torch, coeffs, bounds, krange, res, gamma, sigma)
+    all_pairs = cell_pairs(torch, bounds, krange, res)
+    return (f"{tag} evaluated: {n['live_tiles']} of {n['tiles']} (chunk, "
+            f"{RC.K1_TILE[0]}x{RC.K1_TILE[1]} tile) pairs with a live face, {n['live']} live "
+            f"(face, tile) pairs = {n['pairs'] / 1e6:.1f}M face-pixel pairs against "
+            f"{all_pairs / 1e6:.1f}M (host count, raster_cuda.far_faces, far_logit "
+            f"{RC.k1_far_logit(gamma):.0f}); bitwise equal to far_logit=inf: {same_bits}")
 
 
 def phase_k1(torch, device, scene, smi: str, out: dict) -> torch.Tensor:
@@ -280,88 +411,21 @@ def phase_k1(torch, device, scene, smi: str, out: dict) -> torch.Tensor:
     cfg = RC.default_config()
     worst, coords, failures = 0.0, None, []
     coeffs, bounds, krange = raster_inputs(torch, tgt, ref, faces, k, RES)
-    all_pairs = cell_pairs(torch, bounds, krange, RES)
     for gamma in GAMMAS:
         args = (coeffs, bounds, krange, (RES, RES), SIGMA, gamma, cfg)
-        # The dispatcher the slice calls, then the same kernel evaluating
-        # every pair: the skip must not change a bit.
-        got = RC.raster_fwd(coeffs, bounds, krange, (RES, RES), SIGMA, gamma, cfg)
-        every = RC.raster_fwd_cuda(*args, far_logit=math.inf)
-        torch.cuda.synchronize()
-        same_bits = all(torch.equal(g.view(torch.int32), e.view(torch.int32))
-                        for g, e in zip(got, every))
-        want = RC.raster_fwd_plain(*args)
-        want64 = RC.raster_fwd_plain(coeffs.double(), *args[1:])
-        torch.cuda.synchronize()
-        n_user = got[1].shape[1] - 1  # attr holds C pixel coordinates, then zbar
-        errs = {name: float((g - w).abs().max()) for name, g, w in (
-            ("sil", got[0], want[0]), ("vis", got[2], want[2]))}
-        # Rows of rim sliver faces make the attribute block sensitive to
-        # f32 rounding, and the plain version (no FMAs) rounds worse than
-        # the kernel: its depth lands up to ~8e-4 from a float64 evaluation
-        # of the same coefficients, its pixel coordinates up to ~0.6 px.
-        # So float64 is the arbiter. Depth, in [0, 1], must lie within the
-        # bar of it; each pixel-coordinate channel may be no further from it
-        # than the f32 plain version's same channel is, plus the bar.
-        def from64(x, c):
-            return float((x[1][:, c] - want64[1][:, c]).abs().max())
-
-        errs["depth"], plain_depth = from64(got, n_user), from64(want, n_user)
-        coord_errs = [(from64(got, c), from64(want, c)) for c in range(n_user)]
-        errs["coords"] = max(e for e, _ in coord_errs)
-        plain_coords = max(p for _, p in coord_errs)
-        # m and log(den) carry zbar / gamma: the depth bar times 1/gamma,
-        # with the same float64 arbiter as the coordinates.
-        def mden_errs(x):
-            m = float((x[:, 0] - want64[3][:, 0]).abs().max())
-            den = float(((x[:, 1] - want64[3][:, 1]).abs() / want64[3][:, 1]).max())
-            return m, den
-
-        (m_err, den_rel), (m_plain, den_plain) = mden_errs(got[3]), mden_errs(want[3])
-        sil_cov = float((want[0] > 1e-3).float().mean())
-        log(f"K1 gamma=1/{1 / gamma:.0f} ({'fixed-m' if 1 / gamma <= 60 else 'streaming'}): "
-            f"max abs err from plain: sil {errs['sil']:.3g} vis {errs['vis']:.3g}; "
-            f"from float64: depth {errs['depth']:.3g} (plain f32 {plain_depth:.3g}) "
-            f"coords {errs['coords']:.3g} (plain f32 {plain_coords:.3g}) "
-            f"m {m_err:.3g} (plain {m_plain:.3g}) den rel {den_rel:.3g} "
-            f"(plain {den_plain:.3g}); covered share {sil_cov:.3f}")
-        tag = f"K1 gamma={gamma:.4g}"
-        for name, bar in (("sil", SIL_ATOL), ("vis", ATOL), ("depth", ATOL)):
-            if not errs[name] <= bar:
-                failures.append(f"{tag} {name}: max err {errs[name]:.3g} > {bar}")
-        for c, (e, p) in enumerate(coord_errs):
-            if not e <= p + ATOL:
-                failures.append(f"{tag} coord {c}: kernel {e:.3g} from float64, plain f32 {p:.3g}")
-        if not (m_err <= m_plain + ATOL / gamma and den_rel <= den_plain + ATOL / gamma):
-            failures.append(f"{tag} mden from float64: m {m_err:.3g} (plain {m_plain:.3g}), "
-                            f"den rel {den_rel:.3g} (plain {den_plain:.3g})")
-        if not same_bits:
-            failures.append(f"{tag}: the skip changes the output bits")
-        worst = max(worst, *errs.values())
-        n = k1_tiles(torch, coeffs, bounds, krange, RES, gamma)
-        log(f"K1 gamma=1/{1 / gamma:.0f} evaluated: {n['live_tiles']} of {n['tiles']} (chunk, "
-            f"{RC.K1_TILE[0]}x{RC.K1_TILE[1]} tile) pairs with a live face, {n['live']} live "
-            f"(face, tile) pairs = {n['pairs'] / 1e6:.1f}M face-pixel pairs against "
-            f"{all_pairs / 1e6:.1f}M (host count, raster_cuda.far_faces, far_logit "
-            f"{RC.k1_far_logit(gamma):.0f}); bitwise equal to far_logit=inf: {same_bits}")
+        tag = f"K1 gamma=1/{1 / gamma:.0f}"
+        fails, err, same_bits, got = check_k1(torch, args, tag)
+        failures += fails
+        worst = max(worst, err)
+        log(k1_evaluated_line(torch, args, RES, tag, same_bits))
         if gamma == GAMMAS[0]:
-            ms = cuda_ms(torch, lambda: RC.raster_fwd_cuda(*args), 20)
-            every_ms = cuda_ms(torch, lambda: RC.raster_fwd_cuda(*args, far_logit=math.inf), 20)
-            plain_ms = cuda_ms(torch, lambda: RC.raster_fwd_plain(*args), 2)
-            needed, _ = RC.needed_pairs(*args)
-            bound_ms, bound_by = k1_bound(torch, coeffs, bounds, krange, RES, needed)
-            all_bound_ms, _ = k1_bound(torch, coeffs, bounds, krange, RES, all_pairs)
+            timing = time_k1(torch, args, RES, smi, "K1")
             coords = got[1][:, :2, :RES, :RES].permute(0, 2, 3, 1).contiguous()
-            log(f"K1 time: kernel {ms:.4f} ms (far_logit=inf, every pair: {every_ms:.4f} ms), "
-                f"plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-                f"{needed / 1e6:.1f}M face-pixel pairs whose contribution is not exactly 0, "
-                f"counted per pixel; over all {all_pairs / 1e6:.1f}M pairs of K1's cells "
-                f"{all_bound_ms:.4f} ms), {coeffs.shape[1]} padded faces; card {smi}")
     if failures:
         fail("; ".join(failures))
     out.update(name="raster_fwd", route="cuda", source="hocon_torch/csrc/raster_fwd.cu",
-               replaces="hocon/render/raster_pallas.py:304", max_abs_err=worst, ms=ms,
-               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+               replaces="hocon/render/raster_pallas.py:304", max_abs_err=worst,
+               library_ms=None, **timing)
     return coords
 
 
@@ -558,12 +622,113 @@ def phase_k2(torch, device, scene, smi: str, out: dict) -> None:
                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
-def load_frames():
-    files = sorted(glob.glob(os.path.join(HERE, "assets", "synth_cache", "*.npz")))
-    if not files:
-        fail("no rendered frames under assets/synth_cache")
-    with np.load(files[0]) as z:
-        return z["images"], z["verts"], z["joints"]
+def colour_raster_inputs(torch, pose_ds, verts, joints, device):
+    """The kernel interface of K1 for the synthetic dataset's render of
+    hands ``verts`` / ``joints`` (and its object), as ``render_frames``
+    builds it through ``soft_rasterize``: 3 vertex-colour channels, sigma
+    0.7, no backface culling. Returns (coeffs, bounds, krange) of every
+    face, and of the faces that are not rim slivers (the slivers inert)."""
+    from hocon_torch.data import synthetic as S
+    from hocon_torch.geometry.project import persp_project
+    from hocon_torch.render import raster as R
+    from hocon_torch.render import raster_cuda as RC
+
+    all_v, all_f = pose_ds.meshes(verts, joints)
+    v = torch.from_numpy(all_v).to(device)
+    n, nv = v.shape[:2]
+    vp = persp_project(v, torch.from_numpy(pose_ds.camintr).to(device)[None].expand(n, 3, 3))
+    colors = torch.from_numpy(S.vertex_colors(nv)).to(device)[None].expand(n, nv, 3)
+    faces_sorted, bbox = RC.sort_faces_by_y(vp, torch.from_numpy(all_f).to(device))
+    planes = R.face_planes(vp, R.normalize_depth(v[..., 2]), faces_sorted, colors)
+    fv = R.gather_faces(vp, faces_sorted)
+    edge2 = ((fv - fv.roll(1, dims=-2)) ** 2).sum(-1).amax(-1)
+    well = R.face_det2d(fv).abs() >= SLIVER_FRAC * edge2
+    hp = RC.padded_size((pose_ds.image_size,) * 2)[0]
+    out = []
+    for p in (planes, R.FacePlanes(planes.rows, planes.valid * well)):
+        coeffs, bounds = RC.pack_sorted_planes(p, bbox, S.RENDER_SIGMA)
+        out.append((coeffs, bounds, RC.chunk_ranges(bounds, hp)))
+    return out
+
+
+def sliver_moved(torch, args, args_ws):
+    """Attribute-block values (B, C+1, Hp, Wp) that rim slivers move: where
+    the float64 plain renders with and without the slivers differ by more
+    than the bar."""
+    from hocon_torch.render import raster_cuda as RC
+
+    full = RC.raster_fwd_plain(args[0].double(), *args[1:])[1]
+    without = RC.raster_fwd_plain(args_ws[0].double(), *args_ws[1:])[1]
+    return (full - without).abs() > ATOL
+
+
+def phase_data(torch, device, smi: str, out: dict):
+    """The data path of ``bench_torch.py``: ``get_dataset`` renders the
+    synthetic dataset on the card (K1 at 3 colour channels), then one
+    batch of 16 pairs from ``BatchLoader``. K1 at C = 3 is checked and
+    timed on that render's own inputs; the port's render of the verts
+    stored with the TPU's frames is compared with those frames, for the
+    record. Returns the rendered frames and the batch."""
+    from bench_torch import dataset_kwargs
+    from hocon_torch.data import synthetic as S
+    from hocon_torch.data.factory import get_dataset
+    from hocon_torch.data.pipeline import BatchLoader
+    from hocon_torch.geometry.mano import synthetic_mano_model
+    from hocon_torch.render import raster_cuda as RC
+
+    mano = synthetic_mano_model(0, device=device)
+    torch.cuda.synchronize()
+    RC.raster_fwd.launches = 0
+    t0 = time.perf_counter()
+    ds = get_dataset(**dataset_kwargs(OBJ_FACES), mano=mano, device=device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    launches = RC.raster_fwd.launches
+    pose_ds = ds.pose_dataset
+    frames = pose_ds.images
+    log(f"data: get_dataset('synthetic') {setup_s:.3f} s for {len(frames)} frames at "
+        f"{pose_ds.image_size}^2 ({len(pose_ds.mano.faces)} + {len(pose_ds.obj_faces)} faces), "
+        f"K1 launches {launches}; card {smi}")
+    if launches < 1:
+        fail("the synthetic dataset rendered without launching K1")
+    if frames.shape != (32, RES, RES, 3) or frames.dtype != np.uint8:
+        fail(f"rendered frames {frames.shape} {frames.dtype}")
+
+    cfg = RC.default_config()
+    inputs, inputs_ws = colour_raster_inputs(torch, pose_ds, pose_ds.verts, pose_ds.joints,
+                                             device)
+    args = (*inputs, (RES, RES), S.RENDER_SIGMA, 1.0 / 40.0, cfg)
+    moved = sliver_moved(torch, args, (*inputs_ws, *args[3:]))
+    failures, worst, same_bits, _ = check_k1(torch, args, "K1 render", moved)
+    log(k1_evaluated_line(torch, args, RES, "K1 render", same_bits))
+    if failures:
+        fail("; ".join(failures))
+    timing = time_k1(torch, args, RES, smi, "K1 render")
+    out.update(name="raster_fwd (C=3, synthetic render)", route="cuda",
+               source="hocon_torch/csrc/raster_fwd.cu",
+               replaces="hocon/render/raster_pallas.py:304", launches=launches,
+               max_abs_err=worst, library_ms=None, **timing)
+
+    # For the record: the port's render of the verts and joints stored with
+    # the JAX bench's frames (rendered on the TPU by its Pallas kernel).
+    with np.load(os.path.join(HERE, TPU_FRAMES)) as z:
+        tpu_images, tpu_verts, tpu_joints = z["images"], z["verts"], z["joints"]
+    mine = S.render_frames(*pose_ds.meshes(tpu_verts, tpu_joints), pose_ds.camintr, RES, device)
+    diff = np.abs(mine.astype(int) - tpu_images.astype(int)).max(axis=-1)
+    log(f"data: the port's render of {TPU_FRAMES}'s verts against its TPU frames: "
+        f"{(diff > 1).mean():.4g} of pixels differ by more than 1 level in some channel "
+        f"({(diff > 4).mean():.4g} by more than 4), largest {diff.max()}; the port's own MANO "
+        f"verts are {np.abs(pose_ds.verts - tpu_verts).max():.3g} m from the stored ones")
+
+    t0 = time.perf_counter()
+    batch = next(iter(BatchLoader(ds, PAIRS, seed=0, drop_last=False)))
+    batch_s = time.perf_counter() - t0
+    shapes = {k: tuple(batch[k]["image"].shape) for k in ("ref", "tgt")}
+    log(f"data: one BatchLoader batch of {PAIRS} pairs {batch_s:.3f} s on the host "
+        f"(crop, augment, stack); images {shapes}; card {smi}")
+    if any(s != (PAIRS, RES, RES, 3) for s in shapes.values()):
+        fail(f"batch image shapes {shapes}")
+    return frames, batch
 
 
 def phase_k3(torch, device, coords, images, smi: str, out: dict) -> None:
@@ -670,41 +835,6 @@ def phase_k4(torch, device, coords, images, smi: str, out: dict) -> None:
     out.update(name="sample_bwd", route="cuda", source="hocon_torch/csrc/sample_bwd.cu",
                replaces="hocon/render/sample_pallas.py:133", max_abs_err=err, ms=ms,
                plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms)
-
-
-def make_batch(images, verts, joints):
-    """16 (ref, tgt) pairs of cached 256^2 frames with their ground truth,
-    in the reference's batch layout (uint8 images, centred-mm targets)."""
-    from hocon_torch.data.synthetic import OBJ_SCALE, synthetic_camintr, uv_sphere
-
-    sv, sf = uv_sphere(OBJ_FACES)
-    obj_can = (sv * (OBJ_SCALE * 0.5)).astype(np.float32)
-    k = synthetic_camintr(RES)
-    videos = len(images) // 16
-    ref_idx = np.array([v * 16 + r for v in range(videos) for r in range(PAIRS // videos)])
-    tgt_idx = ref_idx + 4
-
-    def view(idx, supervised):
-        j, v = joints[idx], verts[idx]
-        center = j[:, 9]
-        hom = j @ k.T
-        obj_cam = obj_can[None] + j[:, :1] + np.float32([0.0, 0.04, 0.02])
-        n = len(idx)
-        return {
-            "image": images[idx],
-            "camintr": np.repeat(k[None], n, 0),
-            "joints2d": (hom[..., :2] / hom[..., 2:]).astype(np.float32),
-            "joints3d": ((j - center[:, None]) * 1000.0).astype(np.float32),
-            "verts3d": ((v - center[:, None]) * 1000.0).astype(np.float32),
-            "center3d": center.astype(np.float32),
-            "sup_mask": np.full((n,), float(supervised), np.float32),
-            "obj_verts_can": np.repeat(obj_can[None], n, 0),
-            "obj_faces": np.repeat(sf[None], n, 0).astype(np.int32),
-            "objverts3d": ((obj_cam - center[:, None]) * 1000.0).astype(np.float32),
-            "obj_verts_mask": np.ones((n, len(obj_can)), np.float32),
-        }
-
-    return {"ref": view(ref_idx, True), "tgt": view(tgt_idx, False)}
 
 
 def phase_slice(torch, device, batch, smi: str, out_dir: str, kernels: list) -> None:
@@ -854,20 +984,21 @@ def main() -> None:
 
     smi = phase_device(torch)
     phase_build(out_dir)
+    k1c3, k1, k2, k3, k4 = {}, {}, {}, {}, {}
+    # The data path: its K1 launches (C = 3) go into the table.
+    images, batch = phase_data(torch, device, smi, k1c3)
     scene = make_scene(torch, device)
-    k1, k2, k3, k4 = {}, {}, {}, {}
     coords = phase_k1(torch, device, scene, smi, k1)
     phase_k2(torch, device, scene, smi, k2)
-    images, verts, joints = load_frames()
     phase_k3(torch, device, coords, images, smi, k3)
     phase_k4(torch, device, coords, images, smi, k4)
-    batch = make_batch(images, verts, joints)
     phase_slice(torch, device, batch, smi, out_dir, [k1, k3])
     # The train step is the main path: its launches go into the table.
     phase_train(torch, device, batch, smi, out_dir, [k1, k2, k3, k4])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in (k1, k2, k3, k4)]}))
+    print(json.dumps({"kernels": [{k: kern[k] for k in keys}
+                                  for kern in (k1, k1c3, k2, k3, k4)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,7 +10,9 @@ counterpart is easy to find:
   sampler (kernels K3, K4), SSIM and the photometric-consistency warp.
 - ``hocon_torch.train``    — the warp and supervised train steps, the
   optimizer, and the eval forward pass.
-- ``hocon_torch.data``     — the meshes the main path renders.
+- ``hocon_torch.data``     — the synthetic dataset (rendered on the card
+  by kernel K1), crop / augment / labels (``HandDataset``), the dataset
+  factory and ``BatchLoader``.
 - ``hocon_torch.utils``    — the Flax weight bridge and the CUDA build.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; see

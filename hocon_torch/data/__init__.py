@@ -1,1 +1,2 @@
-"""Data: the pieces of ``hocon.data`` the main path needs so far."""
+"""Data: the synthetic dataset, ``HandDataset`` (crop / augment / labels),
+``get_dataset`` and ``BatchLoader``, ported from ``hocon.data``."""

@@ -1,13 +1,30 @@
 """Mesh utilities the main path needs.
 
-Port of ``orient_faces_outward`` from ``hocon/data/meshes.py`` (numpy only):
-backface culling assumes ``cross(v1 - v0, v2 - v0)`` points out of the
-mesh, and this rewinds faces so it does.
+Port of ``bbox_corners`` and ``orient_faces_outward`` from
+``hocon/data/meshes.py`` (numpy only): the object's bounding-box corners
+(the HO-3D corner-error label), and the rewinding that makes
+``cross(v1 - v0, v2 - v0)`` point out of the mesh, as backface culling
+assumes.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def bbox_corners(verts: np.ndarray) -> np.ndarray:
+    """(V, 3) -> the 8 axis-aligned bounding-box corners (8, 3), in the
+    reference's order: binary counting over (x, y, z) min/max."""
+    v = np.asarray(verts, np.float32)
+    lo, hi = v.min(axis=0), v.max(axis=0)
+    out = np.empty((8, 3), np.float32)
+    for c in range(8):
+        out[c] = [
+            (lo, hi)[(c >> 2) & 1][0],
+            (lo, hi)[(c >> 1) & 1][1],
+            (lo, hi)[c & 1][2],
+        ]
+    return out
 
 
 def orient_faces_outward(

@@ -51,7 +51,11 @@ _BIG_NEG = -1e4  # inert-face edge constant; its square stays in f32 range
 # Fixed-reference softmax when 1 / gamma <= this: every weight exp(l) and
 # the background weight exp(-1 / gamma) stay inside f32 range.
 FIXED_M_MAX_INV_GAMMA = 60.0
-KERNEL_ATTRS = 2  # attribute channels the CUDA kernels are built for
+# Attribute channels the CUDA kernels are built for: K1 renders the warp's
+# two reference-view pixel coordinates and the synthetic dataset's three
+# vertex colours; K2 differentiates the warp render only.
+K1_ATTRS = (2, 3)
+K2_ATTRS = 2
 # The kernels' skip rule (``far_faces``, hocon_torch/csrc/far_bound.cuh): a
 # face is far from a tile of pixels when its logits there are below
 # -far_logit and no pixel is inside; each row's corner values are widened by
@@ -381,10 +385,10 @@ def raster_fwd_cuda(coeffs, bounds, krange, image_size, sigma, gamma, config, *,
     n_user = r3 // 3 - N_GEOM_ROWS
     hp, wp = padded_size(image_size)
     nc = bounds.shape[1]
-    if n_user != KERNEL_ATTRS:
+    if n_user not in K1_ATTRS:
         raise ValueError(
-            f"raster_fwd kernel is built for {KERNEL_ATTRS} attribute channels "
-            f"(the warp's reference-pixel coordinates), got {n_user}"
+            f"raster_fwd kernel is built for {K1_ATTRS} attribute channels "
+            f"(the warp's reference-pixel coordinates, vertex colours), got {n_user}"
         )
     if config.face_chunk != FACE_CHUNK or fp != nc * FACE_CHUNK:
         raise ValueError(
@@ -400,7 +404,7 @@ def raster_fwd_cuda(coeffs, bounds, krange, image_size, sigma, gamma, config, *,
     ):
         if t.dtype != dtype or not t.is_contiguous() or t.device != coeffs.device:
             raise ValueError(f"raster_fwd: {name} must be contiguous {dtype} on {coeffs.device}")
-    if coeffs.data_ptr() % 16:
+    if r3 % 4 == 0 and coeffs.data_ptr() % 16:
         raise ValueError("raster_fwd: coeffs must start on a 16-byte boundary (float4 loads)")
     if far_logit is None:
         far_logit = k1_far_logit(gamma)
@@ -685,9 +689,9 @@ def raster_bwd_cuda(coeffs, bounds, krange, sil, attr, vis, mden, gsil, gattr, g
     n_user = r3 // 3 - N_GEOM_ROWS
     hp, wp = padded_size(image_size)
     nc = bounds.shape[1]
-    if n_user != KERNEL_ATTRS:
+    if n_user != K2_ATTRS:
         raise ValueError(
-            f"raster_bwd kernel is built for {KERNEL_ATTRS} attribute channels "
+            f"raster_bwd kernel is built for {K2_ATTRS} attribute channels "
             f"(the warp's reference-pixel coordinates), got {n_user}"
         )
     if config.face_chunk != FACE_CHUNK or fp != nc * FACE_CHUNK:
