@@ -45,14 +45,28 @@ Phases, each reported on its own line:
    warm-up step, then timed steps with all four counters zeroed just
    before; every kernel must launch every step, every term and the
    gradient norm be finite, and the loss fall over 8 steps; one step is
-   profiled.
+   profiled;
+10. cli    — the port's entry points as a user runs them, in a temporary
+   directory under ``--out`` (removed after): ``hocon_torch.cli.trainwarp``
+   at full width (``CLI_FLAGS``: 256^2 crops, batch 16, hand + object,
+   4 videos x 16 frames, a quarter annotated, 2 epochs, Adam at 5e-4; bf16
+   autocast, frozen batch norm and every other flag at its default), with
+   every counter zeroed just before and read just after: K1 at C = 3 once
+   per dataset (train and val), K1 at C = 2, K2, K3 and K4 once per train
+   step, every logged term finite, ``opt.txt`` / ``opt.json`` /
+   ``metrics.jsonl`` / ``epochs.json`` / ``ckpt/8`` written; a second call
+   with ``--epochs 1`` auto-restores step 8 and logs steps 9-12;
+   ``evaluate --resume`` reproduces the trainer's last val MPJPE;
+   ``predict`` covers the val split once through a padded tail batch; a
+   2-step ``--no_freeze_batchnorm`` run moves the running statistics.
 
 Kernel times are CUDA-event means over many launches, with the stream held
 while the host issues them (``cuda_ms_rotating``), so they are the card's
 time and not the host's issue rate.
 
-The line before the last is the kernel table as JSON; the last line is
-``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
+The line before the last is the kernel table as JSON (launches from the
+cli phase's first ``trainwarp`` call, the slice's main path); the last
+line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero without it.
 Longer diagnostics (compiler register report, profiler tables) go to
 ``--out`` (default ``build/hocon_torch/smoke`` beside this script).
 """
@@ -961,6 +975,164 @@ def phase_train(torch, device, batch, smi: str, out_dir: str, kernels: list) -> 
     log(profile_line(prof, "one train step", smi))
 
 
+# Phase 10: the flags of the trainer's first call; the others stay at the
+# CLI's defaults (ResNet-18 in bf16 autocast, frozen batch norm, Adam,
+# gamma 1/40, backend auto = K1 / K2).
+CLI_FLAGS = {"dataset": "synthetic", "image_size": RES, "batch_size": PAIRS, "use_objects": True,
+             "synth_videos": 4, "synth_frames": 16, "fraction": 0.25, "epochs": 2, "lr": 5e-4,
+             "exp_id": "smoke"}
+CLI_STEPS = 8  # 4 videos x 16 frames = 64 pairs = 4 steps of 16, 2 epochs
+PREDICT_BATCH = 12  # the 32 val frames in batches of 12, 12 and 8 + 4 padding rows
+MPJPE_RTOL = 1e-3
+
+
+def cli_argv(flags: dict) -> list:
+    """{"lr": 5e-4, "use_objects": True} -> ["--lr", "0.0005", "--use_objects"]."""
+    out = []
+    for k, v in flags.items():
+        out += [f"--{k}"] if v is True else [f"--{k}", str(v)]
+    return out
+
+
+def run_cli(main, argv: list, device) -> tuple:
+    """``main(argv, device=...)`` with its printed lines captured and
+    echoed; returns (result, stdout text)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = main(argv, device=device)
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"  | {line}")
+    return result, text
+
+
+def cli_setup_s(text: str) -> float:
+    found = re.search(r"set-up ([0-9.]+) s", text)
+    if not found:
+        fail("the CLI printed no set-up line")
+    return float(found.group(1))
+
+
+def phase_cli(torch, device, smi: str, out_dir: str, kernels: dict) -> None:
+    """The entry points of ``hocon_torch.cli`` at full width (see the
+    module note, phase 10). Fills ``kernels`` with the launches of the
+    first ``trainwarp`` call: K1 at C = 2 (``raster_fwd``) and C = 3
+    (``raster_fwd C=3``), K2, K3 and K4 by their wrappers' names."""
+    import shutil
+    import tempfile
+
+    from hocon_torch.cli import evaluate, predict, trainwarp
+    from hocon_torch.render import raster_cuda as RC
+    from hocon_torch.render import sample_cuda as SC
+
+    here = os.getcwd()
+    work = tempfile.mkdtemp(prefix="cli-", dir=out_dir)
+    os.chdir(work)
+    t_phase = time.perf_counter()
+    try:
+        run = os.path.join(work, "checkpoints", "smoke")
+        torch.cuda.synchronize()
+        RC.raster_fwd.launches = RC.raster_bwd.launches = 0
+        SC.sample_fwd.launches = SC.sample_bwd.launches = 0
+        RC.raster_fwd.launches_by_attrs = {}
+        t0 = time.perf_counter()
+        state, text = run_cli(trainwarp.main, cli_argv(CLI_FLAGS), device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_c = dict(RC.raster_fwd.launches_by_attrs)
+        launches = {"raster_fwd": by_c.get(2, 0), "raster_fwd C=3": by_c.get(3, 0),
+                    "raster_bwd": RC.raster_bwd.launches, "sample_fwd": SC.sample_fwd.launches,
+                    "sample_bwd": SC.sample_bwd.launches}
+        kernels.update(launches)
+        want = {k: CLI_STEPS for k in launches}
+        want["raster_fwd C=3"] = 2  # the train and the val dataset
+        if launches != want or set(by_c) - {2, 3}:
+            fail(f"cli: launches {launches} (by C {by_c}), want {want}: K1 at C = 2, K2, K3 "
+                 f"and K4 once per train step, K1 at C = 3 once per dataset")
+        if state.step != CLI_STEPS:
+            fail(f"cli: trainwarp ended at step {state.step}, want {CLI_STEPS}")
+        missing = [f for f in ("opt.txt", "opt.json", "metrics.jsonl", "epochs.json",
+                               os.path.join("ckpt", str(CLI_STEPS), "state.pt"))
+                   if not os.path.exists(os.path.join(run, f))]
+        if missing:
+            fail(f"cli: the run directory lacks {missing}")
+        setup_s = cli_setup_s(text)
+        with open(os.path.join(run, "epochs.json")) as fh:
+            epochs = json.load(fh)
+        rates = [e["steps_per_sec"] for e in epochs if e["split"] == "train"]
+        log(f"cli: trainwarp {CLI_STEPS} steps of {PAIRS} pairs at {RES}^2 in 2 epochs: set-up "
+            f"{setup_s:.3f} s (MANO, two K1 renders, model); card {smi}")
+        log(f"cli: steps_per_sec {rates[0]:.3f} and {rates[1]:.3f} (epoch 0 and 1, past 2 "
+            f"warm-up steps each: {rates[0] * PAIRS:.1f} and {rates[1] * PAIRS:.1f} pairs/s); "
+            f"the call {wall:.1f} s with eval and snapshots; launches {launches}; card {smi}")
+
+        state, text = run_cli(trainwarp.main, cli_argv({**CLI_FLAGS, "epochs": 1}), device)
+        with open(os.path.join(run, "metrics.jsonl")) as fh:
+            records = [json.loads(line) for line in fh]
+        steps = [r["step"] for r in records]
+        if ("auto-restored latest snapshot (step 8)" not in text or state.step != 12
+                or steps != list(range(1, 13))):
+            fail(f"cli: the second call did not continue step 8 to 12: logged steps {steps}, "
+                 f"state step {state.step}")
+        bad = [r["step"] for r in records
+               if not all(math.isfinite(v) for v in r.values()) or r["mask_area"] <= 0]
+        if bad:
+            fail(f"cli: steps {bad} logged a term that is not finite or an empty mask")
+        with open(os.path.join(run, "epochs.json")) as fh:
+            epochs = json.load(fh)
+        last_val = [e for e in epochs if e["split"] == "val"][-1]
+        log(f"cli: resumed at step 8, logged steps 9-12; train steps_per_sec "
+            f"{epochs[-2]['steps_per_sec']:.3f}; card {smi}")
+
+        # The trainer's val split: max(2, 4 // 4) = 2 videos of 16 frames.
+        ckpt = os.path.join(run, "ckpt")
+        shared = {k: CLI_FLAGS[k] for k in ("dataset", "image_size", "batch_size", "use_objects",
+                                            "synth_frames")}
+        shared.update(synth_videos=2, resume=ckpt)
+        metrics, _ = run_cli(evaluate.main, cli_argv(shared), device)
+        rel = abs(metrics["mpjpe_mm"] - last_val["mpjpe_mm"]) / last_val["mpjpe_mm"]
+        log(f"cli: evaluate MPJPE {metrics['mpjpe_mm']:.4f} mm against the trainer's last val "
+            f"{last_val['mpjpe_mm']:.4f} mm (relative {rel:.3g}, bar {MPJPE_RTOL})")
+        if not rel <= MPJPE_RTOL:
+            fail(f"cli: evaluate MPJPE {metrics['mpjpe_mm']} != trainer's {last_val['mpjpe_mm']}")
+
+        path, _ = run_cli(predict.main,
+                          cli_argv({**shared, "batch_size": PREDICT_BATCH, "out": "preds"}), device)
+        with np.load(path) as z:
+            preds = {k: z[k] for k in z.files}
+        n, n_val = preds["joints_cam"].shape[0], 2 * CLI_FLAGS["synth_frames"]
+        finite = all(np.isfinite(v).all() for v in preds.values())
+        log(f"cli: predict wrote {n} frames of the {n_val} of the split at batch {PREDICT_BATCH} "
+            f"(a tail of {n_val % PREDICT_BATCH} and {-n_val % PREDICT_BATCH} padding rows); "
+            f"finite {finite}")
+        if (n != n_val or len({preds["joints_cam"][i].tobytes() for i in range(n)}) != n
+                or not finite):
+            fail(f"cli: predict covered {n} frames, want the {n_val} of the split once each")
+
+        # 2 videos = 32 pairs = 2 steps; --eval_freq 2 skips the one epoch's eval.
+        bn_flags = {**CLI_FLAGS, "synth_videos": 2, "epochs": 1, "eval_freq": 2, "exp_id": "bn",
+                    "no_freeze_batchnorm": True}
+        state, _ = run_cli(trainwarp.main, cli_argv(bn_flags), device)
+        stats = {k: v for k, v in state.model.state_dict().items() if "running" in k}
+        moved = sum(bool((v != (0.0 if k.endswith("mean") else 1.0)).any())
+                    for k, v in stats.items())
+        finite = all(bool(torch.isfinite(v).all()) for v in stats.values())
+        log(f"cli: --no_freeze_batchnorm, {state.step} steps: {moved} of {len(stats)} running "
+            f"statistics moved from (0, 1), finite {finite}")
+        if state.step != 2 or moved != len(stats) or not finite:
+            fail("cli: trainable batch norm did not move every running statistic")
+        for name in ("opt.json", "epochs.json", "metrics.jsonl"):
+            shutil.copy(os.path.join(run, name), os.path.join(out_dir, f"cli_{name}"))
+        log(f"cli: the phase took {time.perf_counter() - t_phase:.1f} s (three trainwarp calls, "
+            f"evaluate, predict); card {smi}")
+    finally:
+        os.chdir(here)
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> None:
     import torch
 
@@ -995,6 +1167,12 @@ def main() -> None:
     phase_slice(torch, device, batch, smi, out_dir, [k1, k3])
     # The train step is the main path: its launches go into the table.
     phase_train(torch, device, batch, smi, out_dir, [k1, k2, k3, k4])
+    # The slice's main path, the trainer's CLI: its launches go into the table.
+    cli = {}
+    phase_cli(torch, device, smi, out_dir, cli)
+    for kern, name in ((k1, "raster_fwd"), (k1c3, "raster_fwd C=3"), (k2, "raster_bwd"),
+                       (k3, "sample_fwd"), (k4, "sample_bwd")):
+        kern["launches"] = cli[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys}

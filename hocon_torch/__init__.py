@@ -9,11 +9,18 @@ counterpart is easy to find:
 - ``hocon_torch.render``   — soft rasterizer (kernels K1, K2), bilinear
   sampler (kernels K3, K4), SSIM and the photometric-consistency warp.
 - ``hocon_torch.train``    — the warp and supervised train steps, the
-  optimizer, and the eval forward pass.
+  optimizer, the eval forward pass, ``epoch_pass``, metric meters and
+  checkpoints.
 - ``hocon_torch.data``     — the synthetic dataset (rendered on the card
   by kernel K1), crop / augment / labels (``HandDataset``), the dataset
   factory and ``BatchLoader``.
-- ``hocon_torch.utils``    — the Flax weight bridge and the CUDA build.
+- ``hocon_torch.evaluation`` — MPJPE / PCK / AUC (``EvalUtil``), vertex
+  errors, the HO-3D CodaLab dump.
+- ``hocon_torch.cli``      — the ``train``, ``trainwarp``, ``evaluate`` and
+  ``predict`` entry points (``python -m hocon_torch.cli.trainwarp ...``).
+- ``hocon_torch.exp``      — ``save_args``.
+- ``hocon_torch.utils``    — the Flax weight and optimizer-state bridge and
+  the CUDA build.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; see
 ``hocon_torch.device``. On a CPU tensor every kernel wrapper runs its plain

@@ -4,7 +4,7 @@ Port of ``hocon/data/factory.py``: ``get_dataset`` with the reference's
 signature and defaults, plus ``device`` (where a synthetic dataset renders
 its frames; see ``hocon_torch.device``). ``"synthetic"`` is ported; the
 FPHAB and HO-3D parsers come with the off-path data (ROADMAP queue 1,
-item 9).
+item 11).
 """
 
 from __future__ import annotations
@@ -43,7 +43,7 @@ def get_dataset(
     if name in ("fhbhands", "fphab", "ho3dv2", "ho3d"):
         raise NotImplementedError(
             f"dataset {name!r}: the FPHAB and HO-3D parsers are not ported yet "
-            "(ROADMAP queue 1, item 9)"
+            "(ROADMAP queue 1, item 11)"
         )
     if name != "synthetic":
         raise ValueError(f"unknown dataset {name!r}")

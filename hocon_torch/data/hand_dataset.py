@@ -76,7 +76,7 @@ def _load_image(raw: dict) -> np.ndarray:
     if raw.get("image") is None:
         raise NotImplementedError(
             "images loaded from 'image_path' come with the FPHAB / HO-3D "
-            "parsers (ROADMAP queue 1, item 9)"
+            "parsers (ROADMAP queue 1, item 11)"
         )
     return raw["image"]
 

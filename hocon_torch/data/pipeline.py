@@ -5,7 +5,7 @@ Port of ``BatchLoader``, ``_Prefetcher`` and ``probe_batch`` from
 sharding that stacks dict samples into fixed-shape numpy batches
 (``tree_stack`` takes the place of ``jax.tree_util.tree_map``). The
 reference's Grain loaders become a torch ``DataLoader`` with the off-path
-data (ROADMAP queue 1, item 9).
+data (ROADMAP queue 1, item 11).
 """
 
 from __future__ import annotations

@@ -2,8 +2,9 @@
 
 Port of ``hocon/models/backbone.py``: BasicBlock / Bottleneck ResNets with
 explicit (1, 1) padding (torch semantics), batch norm frozen on its running
-statistics, and an optional bf16 compute type that applies inside the trunk
-only (``torch.autocast``); the pooled features come out in f32.
+statistics by default or trainable as Flax's (``freeze_batchnorm=False``),
+and an optional bf16 compute type that applies inside the trunk only
+(``torch.autocast``); the pooled features come out in f32.
 
 Module names follow the Flax tree (``conv_init``, ``bn_init``, blocks
 numbered across stages, ``conv_proj`` / ``norm_proj``) so that
@@ -29,15 +30,31 @@ STAGE_SIZES = {
 BN_EPS = 1e-5
 
 
-class FrozenBatchNorm2d(nn.Module):
-    """Batch norm on running statistics only (Flax ``use_running_average``).
+class BatchNorm2d(nn.Module):
+    """Batch norm as Flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``.
 
-    Buffers and parameter names match ``nn.BatchNorm2d`` so state dicts
-    carry the usual ``weight``/``bias``/``running_mean``/``running_var``.
+    ``frozen`` (the reference's ``freeze_batchnorm``), or the module in eval
+    mode: normalise with the running statistics (``use_running_average``).
+    Otherwise, in training mode: normalise with the batch's statistics and
+    update the running ones as Flax does (``_compute_stats``):
+
+    - mean E[x] and the *biased* variance E[x^2] - E[x]^2, clipped at 0,
+      both reduced in f32 even when the trunk runs in bf16 autocast;
+    - running = 0.9 * running + 0.1 * batch, under no gradient.
+
+    ``F.batch_norm(training=True)`` would update ``running_var`` with the
+    unbiased variance (16/15 of the biased one over the 2 x 2 x 4 values of
+    a 64 px batch of 4 at the last stage). Parameter and buffer names are
+    ``nn.BatchNorm2d``'s, without its ``num_batches_tracked``, so state
+    dicts carry ``weight`` / ``bias`` / ``running_mean`` / ``running_var``
+    only (the keys of the Flax bridge).
     """
 
-    def __init__(self, channels: int, zero_scale: bool = False):
+    MOMENTUM = 0.9
+
+    def __init__(self, channels: int, zero_scale: bool = False, frozen: bool = True):
         super().__init__()
+        self.frozen = frozen
         self.weight = nn.Parameter(
             torch.zeros(channels) if zero_scale else torch.ones(channels)
         )
@@ -46,10 +63,21 @@ class FrozenBatchNorm2d(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(
-            x, self.running_mean, self.running_var, self.weight, self.bias,
-            training=False, eps=BN_EPS,
-        )
+        if self.frozen or not self.training:
+            return F.batch_norm(
+                x, self.running_mean, self.running_var, self.weight, self.bias,
+                training=False, eps=BN_EPS,
+            )
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.MOMENTUM
+            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1, pad: int = 0) -> nn.Conv2d:
@@ -59,15 +87,15 @@ def _conv(cin: int, cout: int, k: int, stride: int = 1, pad: int = 0) -> nn.Conv
 class BasicBlock(nn.Module):
     expansion = 1
 
-    def __init__(self, cin: int, filters: int, stride: int):
+    def __init__(self, cin: int, filters: int, stride: int, freeze_batchnorm: bool = True):
         super().__init__()
         self.conv0 = _conv(cin, filters, 3, stride, 1)
-        self.bn0 = FrozenBatchNorm2d(filters)
+        self.bn0 = BatchNorm2d(filters, frozen=freeze_batchnorm)
         self.conv1 = _conv(filters, filters, 3, 1, 1)
-        self.bn1 = FrozenBatchNorm2d(filters, zero_scale=True)
+        self.bn1 = BatchNorm2d(filters, zero_scale=True, frozen=freeze_batchnorm)
         if stride != 1 or cin != filters:
             self.conv_proj = _conv(cin, filters, 1, stride)
-            self.norm_proj = FrozenBatchNorm2d(filters)
+            self.norm_proj = BatchNorm2d(filters, frozen=freeze_batchnorm)
         else:
             self.conv_proj = None
 
@@ -81,17 +109,17 @@ class BasicBlock(nn.Module):
 class Bottleneck(nn.Module):
     expansion = 4
 
-    def __init__(self, cin: int, filters: int, stride: int):
+    def __init__(self, cin: int, filters: int, stride: int, freeze_batchnorm: bool = True):
         super().__init__()
         self.conv0 = _conv(cin, filters, 1)
-        self.bn0 = FrozenBatchNorm2d(filters)
+        self.bn0 = BatchNorm2d(filters, frozen=freeze_batchnorm)
         self.conv1 = _conv(filters, filters, 3, stride, 1)
-        self.bn1 = FrozenBatchNorm2d(filters)
+        self.bn1 = BatchNorm2d(filters, frozen=freeze_batchnorm)
         self.conv2 = _conv(filters, filters * 4, 1)
-        self.bn2 = FrozenBatchNorm2d(filters * 4, zero_scale=True)
+        self.bn2 = BatchNorm2d(filters * 4, zero_scale=True, frozen=freeze_batchnorm)
         if stride != 1 or cin != filters * 4:
             self.conv_proj = _conv(cin, filters * 4, 1, stride)
-            self.norm_proj = FrozenBatchNorm2d(filters * 4)
+            self.norm_proj = BatchNorm2d(filters * 4, frozen=freeze_batchnorm)
         else:
             self.conv_proj = None
 
@@ -116,18 +144,19 @@ class ResNet(nn.Module):
         block,
         num_filters: int = 64,
         dtype: torch.dtype = torch.float32,
+        freeze_batchnorm: bool = True,
     ):
         super().__init__()
         self.dtype = dtype
         self.conv_init = _conv(3, num_filters, 7, 2, 3)
-        self.bn_init = FrozenBatchNorm2d(num_filters)
+        self.bn_init = BatchNorm2d(num_filters, frozen=freeze_batchnorm)
         blocks = []
         cin = num_filters
         for i, n in enumerate(stage_sizes):
             for j in range(n):
                 stride = 2 if i > 0 and j == 0 else 1
                 filters = num_filters * 2**i
-                blocks.append(block(cin, filters, stride))
+                blocks.append(block(cin, filters, stride, freeze_batchnorm))
                 cin = filters * block.expansion
         self.blocks = nn.ModuleList(blocks)
         self.out_features = cin

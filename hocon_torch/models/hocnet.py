@@ -13,7 +13,7 @@ from hocon_torch.device import resolve_device
 from hocon_torch.geometry.mano import ManoModel, mano_forward
 from hocon_torch.geometry.project import persp_project, transform_points
 from hocon_torch.models.backbone import (
-    FrozenBatchNorm2d,
+    BatchNorm2d,
     lecun_normal_,
     resnet18,
     resnet34,
@@ -25,7 +25,13 @@ _BACKBONES = {"resnet18": resnet18, "resnet34": resnet34, "resnet50": resnet50}
 
 
 class HOCNet(nn.Module):
-    """Hand-object network at fixed weights (batch norm on running stats).
+    """Hand-object network.
+
+    ``freeze_batchnorm`` (the default, as the reference's) keeps batch norm
+    on its running statistics; with False, batch norm in training mode
+    (``model.train()``) normalises with the batch's statistics and updates
+    the running ones as Flax does, and in eval mode uses the running ones
+    (``hocon_torch.models.backbone.BatchNorm2d``).
 
     Weights are initialised on the CPU from ``seed`` through a
     ``torch.Generator`` as Flax initialises them (lecun-normal kernels, zero
@@ -42,6 +48,7 @@ class HOCNet(nn.Module):
         block_rot: bool = False,
         obj_rot_param: str = "6d",
         backbone: str = "resnet18",
+        freeze_batchnorm: bool = True,
         z_init: float = 0.6,
         dtype: torch.dtype = torch.float32,
         seed: int = 0,
@@ -51,7 +58,8 @@ class HOCNet(nn.Module):
         dev = resolve_device(device)
         self.center_idx = center_idx
         self.with_object = with_object
-        self.trunk = _BACKBONES[backbone](dtype=dtype)
+        self.freeze_batchnorm = freeze_batchnorm
+        self.trunk = _BACKBONES[backbone](dtype=dtype, freeze_batchnorm=freeze_batchnorm)
         nf = self.trunk.out_features
         self.mano_head = ManoHead(nf, ncomps=ncomps)
         self.absolute_head = AbsoluteHead(nf, z_init=z_init)
@@ -70,7 +78,7 @@ class HOCNet(nn.Module):
                 lecun_normal_(m.weight, generator)
             elif isinstance(m, MLP):
                 m.reset_parameters(generator)
-            elif isinstance(m, FrozenBatchNorm2d):
+            elif isinstance(m, BatchNorm2d):
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
 

@@ -425,6 +425,7 @@ def raster_fwd_cuda(coeffs, bounds, krange, image_size, sigma, gamma, config, *,
     if err != 0:
         raise RuntimeError(f"raster_fwd kernel launch failed: cudaError {err}")
     raster_fwd.launches += 1
+    raster_fwd.launches_by_attrs[n_user] = raster_fwd.launches_by_attrs.get(n_user, 0) + 1
     return sil, attr, vis, mden
 
 
@@ -441,13 +442,15 @@ def raster_fwd(
     padded (sil, attr, vis, mden).
 
     CUDA tensors launch the kernel (or raise); CPU tensors run
-    ``raster_fwd_plain``. ``raster_fwd.launches`` counts kernel launches.
+    ``raster_fwd_plain``. ``raster_fwd.launches`` counts kernel launches,
+    ``raster_fwd.launches_by_attrs`` the same per attribute count C.
     """
     fn = raster_fwd_cuda if coeffs.is_cuda else raster_fwd_plain
     return fn(coeffs, bounds, krange, image_size, sigma, gamma, config or default_config())
 
 
 raster_fwd.launches = 0
+raster_fwd.launches_by_attrs = {}
 
 
 def _rcp123(cnt: torch.Tensor) -> torch.Tensor:

@@ -6,15 +6,22 @@ masked supervised losses, the photometric warp through kernels K1 / K3,
 whose backward runs K2 / K4), with the same arguments and term names;
 ``make_warp_train_step`` and ``make_train_step`` add the backward and the
 update (``hocon_torch.train.state``); ``eval_step`` is the forward of
-``make_eval_step``. Batches are dicts in the reference's layout (NHWC
-images, uint8 or normalized float), as numpy arrays or tensors.
+``make_eval_step``, which wraps it as a ``(state, batch)`` step for
+``epoch_pass``. Batches are dicts in the reference's layout (NHWC images,
+uint8 or normalized float), as numpy arrays or tensors.
 
-Batch norm stays frozen on its running statistics (the reference's
-default ``freeze_batchnorm=True``); its scale and bias train.
+Model mode stands for the reference's ``train`` flag: the train steps put
+the model in training mode (``train=True``), so a HOCNet with
+``freeze_batchnorm=False`` normalises with the batch's statistics (the warp
+step's from the joint [ref; tgt] batch) and updates its running ones;
+``warp_loss`` alone and ``eval_step`` run in eval mode, on the running
+statistics, and restore the mode they found. With the default frozen batch
+norm both modes compute the same.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import numpy as np
@@ -43,6 +50,18 @@ def batch_to_device(batch: dict, device: torch.device) -> dict:
         else:
             out[k] = v
     return out
+
+
+@contextlib.contextmanager
+def _mode(model: torch.nn.Module, train: bool):
+    """Run the block with ``model`` in training (True) or eval mode, then
+    restore the mode it was in."""
+    was = model.training
+    model.train(train)
+    try:
+        yield
+    finally:
+        model.train(was)
 
 
 def _gt_from_batch(batch: dict) -> dict:
@@ -113,11 +132,14 @@ def warp_loss(
     photo_downscale: int = 1,
     backface_cull: bool = True,
     device: str | torch.device | None = None,
+    train: bool = False,
 ) -> tuple[torch.Tensor, dict]:
     """Photometric-consistency loss of a {"ref", "tgt"} pair batch.
 
     Returns ``(total, terms)`` with the reference's term names. k-frame
     clips (tgt leaves shaped (B, K-1, ...)) fold the targets into the batch.
+    ``train`` runs the model in training mode (the train step's forward),
+    else in eval mode; the model's mode is restored after.
     """
     dev = resolve_device(device)
     batch = batch_to_device(batch, dev)
@@ -138,12 +160,13 @@ def warp_loss(
     obj = None
     if "obj_verts_can" in ref:
         obj = torch.cat([ref["obj_verts_can"], tgt["obj_verts_can"]])
-    out = model(
-        torch.cat([ref["image"], tgt["image"]]),
-        torch.cat([ref["camintr"], tgt["camintr"]]),
-        mano,
-        obj,
-    )
+    with _mode(model, train):
+        out = model(
+            torch.cat([ref["image"], tgt["image"]]),
+            torch.cat([ref["camintr"], tgt["camintr"]]),
+            mano,
+            obj,
+        )
     out_ref = {k: v[:b] for k, v in out.items()}
     out_tgt = {k: v[b:] for k, v in out.items()}
 
@@ -215,6 +238,7 @@ def make_train_step(
 
     def step(state: TrainState, batch: dict):
         _check_state(state, model)
+        model.train()
         batch = batch_to_device(batch, dev)
         out = model(_device_images(batch["image"]), batch["camintr"], mano,
                     batch.get("obj_verts_can"))
@@ -250,12 +274,13 @@ def make_warp_train_step(
 
     def step(state: TrainState, batch: dict):
         _check_state(state, model)
+        model.train()
         loss, terms = warp_loss(
             model, mano, batch, image_size, hand_lambdas=hand_lambdas,
             obj_lambdas=obj_lambdas, lambda_consist=lambda_consist,
             consist_gt_refs=consist_gt_refs, sigma=sigma, gamma=gamma,
             backend=backend, photo_downscale=photo_downscale,
-            backface_cull=backface_cull, device=dev,
+            backface_cull=backface_cull, device=dev, train=True,
         )
         return _update(state, loss, terms)
 
@@ -269,13 +294,15 @@ def eval_step(
     batch: dict,
     device: str | torch.device | None = None,
 ) -> dict:
-    """Eval forward: the predictions ``make_eval_step`` returns."""
+    """Eval forward: the predictions ``make_eval_step`` returns, with the
+    model in eval mode (batch norm on its running statistics)."""
     dev = resolve_device(device)
     batch = batch_to_device(batch, dev)
-    out = model(
-        _device_images(batch["image"]), batch["camintr"], mano,
-        batch.get("obj_verts_can"),
-    )
+    with _mode(model, False):
+        out = model(
+            _device_images(batch["image"]), batch["camintr"], mano,
+            batch.get("obj_verts_can"),
+        )
     preds = {k: out[k] for k in
              ("joints_c_mm", "verts_c_mm", "joints2d", "joints_cam", "verts_cam")}
     if "obj_verts_c_mm" in out:
@@ -286,3 +313,19 @@ def eval_step(
             )
             preds["obj_corners_c_mm"] = (corners_cam - out["center_cam"]) * 1000.0
     return preds
+
+
+def make_eval_step(
+    model: torch.nn.Module,
+    mano: ManoModel,
+    device: str | torch.device | None = None,
+) -> Callable[[TrainState, dict], dict]:
+    """``eval_step`` as a (state, batch) -> predictions step, the signature
+    ``epoch_pass`` calls in eval mode."""
+    dev = resolve_device(device)
+
+    def step(state: TrainState, batch: dict) -> dict:
+        _check_state(state, model)
+        return eval_step(model, mano, batch, device=dev)
+
+    return step

@@ -1,4 +1,5 @@
-"""Weight bridge: Flax HOCNet variables (numpy) -> port ``state_dict``.
+"""Weight bridge: Flax HOCNet variables (numpy) -> port ``state_dict``,
+and optax Adam's state -> the port's train state.
 
 The inverse of the Flax naming that ``hocon/models/*`` produces. Input is a
 nested dict of numpy arrays, ``{"params": ..., "batch_stats": ...}``, as
@@ -11,6 +12,9 @@ nested dict of numpy arrays, ``{"params": ..., "batch_stats": ...}``, as
   and ``norm_proj`` keep their names;
 - ``BasicBlock_k`` / ``Bottleneck_k`` -> ``blocks.k``;
 - ``<mlp>/Dense_i/kernel`` (in, out) -> ``<mlp>.layers.{i}.weight`` (out, in).
+
+``load_optax_adam_state`` maps Adam's moments the same way, so a port run
+continues a JAX run's train state.
 """
 
 from __future__ import annotations
@@ -83,3 +87,40 @@ def load_flax_variables(model: torch.nn.Module, variables: Mapping) -> None:
                 f"{arr.shape}"
             )
     model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
+
+
+def load_optax_adam_state(state, mu: Mapping, nu: Mapping, count) -> None:
+    """Continue optax Adam's state in a port ``TrainState`` built with
+    ``make_optimizer("adam" | "adamw")``, in place.
+
+    ``mu`` / ``nu`` are the Flax-params-shaped moment trees and ``count``
+    the update count of optax's ``ScaleByAdamState``, as ``jax.device_get``
+    returns them. They become ``OptaxAdam``'s ``exp_avg`` / ``exp_avg_sq``
+    (through the parameter mapping above) and its per-group ``count``; each
+    parameter's step tensor, the schedule and ``state.step`` move on by
+    ``count`` updates, as ``count`` port updates would have moved them.
+    """
+    from hocon_torch.train.state import OptaxAdam
+
+    opt = state.optimizer
+    if not isinstance(opt, OptaxAdam):
+        raise TypeError(f"optax Adam state needs OptaxAdam, not {type(opt).__name__}")
+    count = int(np.asarray(count))
+    moments = {name: flax_to_state_dict({"params": tree})
+               for name, tree in (("exp_avg", mu), ("exp_avg_sq", nu))}
+    with torch.no_grad():
+        for k, p in state.model.named_parameters():
+            st = opt.state[p]
+            for name, sd in moments.items():
+                if tuple(sd[k].shape) != tuple(p.shape):
+                    raise ValueError(f"{name} of {k}: shape {sd[k].shape}, parameter "
+                                     f"{tuple(p.shape)}")
+                st[name].copy_(torch.from_numpy(sd[k]))
+            st["step"].fill_(OptaxAdam._START_STEP + count)
+    sched = state.schedule
+    sched.last_epoch = count
+    sched._last_lr = [base * fn(count) for fn, base in zip(sched.lr_lambdas, sched.base_lrs)]
+    for group, lr in zip(opt.param_groups, sched._last_lr):
+        group["count"] = count
+        group["lr"] = lr
+    state.step = count

@@ -1,0 +1,154 @@
+"""Port CLIs (``hocon_torch.cli``) vs ``hocon.cli``.
+
+The parsers take the reference's flags with its defaults. The entry points
+run end to end on the CPU at 32 px: ``trainwarp`` trains 2 steps with
+eval and a snapshot, a second call auto-restores it and trains 2 more,
+``evaluate --resume`` reproduces the trainer's last val MPJPE, ``predict``
+covers its split exactly once through a padded tail batch, and ``train``
+runs. Every flag whose code is not ported raises ``NotImplementedError``
+naming its ROADMAP item, and ``main`` without ``device`` needs CUDA.
+"""
+
+import argparse
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import hocon.cli.opts as ref_opts
+from hocon_torch.cli import evaluate, predict, train, trainwarp
+
+torch.set_num_threads(1)
+
+CLIS = {"train": train, "trainwarp": trainwarp, "evaluate": evaluate, "predict": predict}
+SMALL = ["--dataset", "synthetic", "--image_size", "32", "--synth_videos", "2",
+         "--synth_frames", "4", "--no_bf16"]
+
+
+def _ref_parser(name):
+    """The parser ``hocon.cli.<name>.main`` builds."""
+    p = argparse.ArgumentParser(name)
+    ref_opts.add_exp_opts(p)
+    ref_opts.add_net_opts(p)
+    ref_opts.add_data_opts(p)
+    if name == "trainwarp":
+        ref_opts.add_warp_opts(p)
+    elif name == "evaluate":
+        p.add_argument("--dump_codalab", default="")
+    elif name == "predict":
+        p.add_argument("--out", default="preds")
+    return p
+
+
+@pytest.mark.parametrize("name", list(CLIS))
+def test_parsers_match_reference(name):
+    port = CLIS[name].build_parser()
+    assert vars(port.parse_args([])) == vars(_ref_parser(name).parse_args([]))
+    argv = ["--no_freeze_batchnorm", "--lr", "1e-3", "--use_objects", "--no_bf16"]
+    assert vars(port.parse_args(argv)) == vars(_ref_parser(name).parse_args(argv))
+
+
+@pytest.fixture(scope="module")
+def warp_run(tmp_path_factory):
+    """Two ``trainwarp`` calls in one run directory (hand + object, batch 4,
+    2 steps each with eval; the second with ``--profile``), then
+    ``evaluate`` and ``predict`` on its snapshot."""
+    cwd = os.getcwd()
+    root = tmp_path_factory.mktemp("cli")
+    os.chdir(root)
+    try:
+        argv = SMALL + ["--batch_size", "4", "--use_objects", "--fraction", "0.5",
+                        "--epochs", "1", "--exp_id", "w"]
+        first = trainwarp.main(argv, device="cpu")
+        files = sorted(os.listdir("checkpoints/w"))
+        first_steps = [json.loads(s)["step"] for s in open("checkpoints/w/metrics.jsonl")]
+        second = trainwarp.main(argv + ["--profile"], device="cpu")
+        ckpt = os.path.join(root, "checkpoints", "w", "ckpt")
+        metrics = evaluate.main(SMALL + ["--batch_size", "4", "--use_objects", "--resume", ckpt],
+                                device="cpu")
+        out = predict.main(SMALL + ["--batch_size", "5", "--use_objects", "--resume", ckpt,
+                                    "--out", "p"], device="cpu")
+        return dict(root=root, first=first, second=second, files=files,
+                    first_steps=first_steps, eval=metrics, preds=dict(np.load(out)))
+    finally:
+        os.chdir(cwd)
+
+
+def test_trainwarp_trains_snapshots_and_auto_restores(warp_run):
+    assert warp_run["first"].step == 2 and warp_run["second"].step == 4
+    assert {"opt.txt", "opt.json", "metrics.jsonl", "epochs.json", "ckpt"} <= set(
+        warp_run["files"])
+    run = warp_run["root"] / "checkpoints" / "w"
+    assert sorted(os.listdir(run / "ckpt")) == ["2", "4"]
+    assert warp_run["first_steps"] == [1, 2]
+    records = [json.loads(s) for s in (run / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in records] == [1, 2, 3, 4]
+    for r in records:
+        assert all(np.isfinite(v) for v in r.values()), r
+        assert r["mask_area"] > 0 and "photo_total" in r
+    epochs = json.loads((run / "epochs.json").read_text())
+    assert [(e["epoch"], e["split"]) for e in epochs] == [(0, "train"), (0, "val")] * 2
+    assert json.loads((run / "opt.json").read_text())["pair_mode"] is True
+    assert os.path.exists(run / "trace" / "epoch0.json")
+
+
+def test_evaluate_reproduces_the_trainers_last_val_mpjpe(warp_run):
+    epochs = json.loads((warp_run["root"] / "checkpoints" / "w" / "epochs.json").read_text())
+    last_val = [e for e in epochs if e["split"] == "val"][-1]
+    got = warp_run["eval"]
+    for k in ("mpjpe_mm", "auc", "obj_verts_err_mm"):
+        np.testing.assert_allclose(got[k], last_val[k], rtol=1e-6, err_msg=k)
+
+
+def test_predict_covers_the_split_exactly_once(warp_run):
+    """8 frames at batch 5: a full batch, then 3 frames and 2 padding rows."""
+    preds = warp_run["preds"]
+    assert preds["joints_cam"].shape == (8, 21, 3)
+    assert preds["joints2d"].shape == (8, 21, 2)
+    assert {"verts_cam", "joints_c_mm", "obj_verts_c_mm"} <= set(preds)
+    assert len({preds["joints_cam"][i].tobytes() for i in range(8)}) == 8
+
+
+def test_train_cli_runs(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    state = train.main(SMALL + ["--batch_size", "4", "--epochs", "1", "--exp_id", "s",
+                                "--max_steps_per_epoch", "2", "--eval_freq", "2"], device="cpu")
+    assert state.step == 2
+    run = tmp_path / "checkpoints" / "s"
+    assert os.path.exists(run / "opt.txt") and os.path.exists(run / "ckpt" / "2" / "state.pt")
+    assert [json.loads(s)["step"] for s in (run / "metrics.jsonl").read_text().splitlines()] == [
+        1, 2]
+
+
+_UNPORTED = {
+    "workers": (["--workers", "2"], "item 11"),
+    "check_data": (["--check_data"], "item 11"),
+    "torch_trunk": (["--torch_trunk", "trunk.pth"], "item 12"),
+    "torch_ckpt": (["--torch_ckpt", "meshreg.pth"], "item 12"),
+    "vis_freq": (["--vis_freq", "1"], "item 12"),
+    "mano_left": (["--mano_side", "left"], "item 11"),
+    "mano_pkl": (["--mano_assets", "mano"], "item 11"),
+    "fphab": (["--dataset", "fhbhands"], "item 11"),
+}
+
+
+@pytest.mark.parametrize("case", list(_UNPORTED))
+def test_unported_flags_raise(case, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    os.makedirs("mano")
+    open("mano/MANO_RIGHT.pkl", "wb").close()
+    flags, item = _UNPORTED[case]
+    for cli in (trainwarp, evaluate):
+        with pytest.raises(NotImplementedError, match=item):
+            cli.main(["--image_size", "32"] + flags, device="cpu")
+
+
+@pytest.mark.parametrize("name", list(CLIS))
+def test_main_without_device_needs_cuda(name, monkeypatch, tmp_path):
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CLIS[name].main(SMALL)
+    assert not os.path.exists(tmp_path / "checkpoints")

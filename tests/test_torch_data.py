@@ -236,9 +236,9 @@ def test_hand_dataset_refuses_oversized_meshes_and_missing_queries(pose_dataset)
         HandDataset(pose_dataset, cfg)[0]
     with pytest.raises(ValueError, match="cannot serve queries"):
         HandDataset(pose_dataset, cfg, required_queries=[TQ.BaseQueries.JOINTS3D, TQ.TransQueries.IMAGE])
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 11"):
         get_dataset("fphab", "train")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 11"):
         get_dataset("ho3d", "test", use_objects=True)
     with pytest.raises(ValueError, match="unknown dataset"):
         get_dataset("mnist", "train")
