@@ -58,7 +58,25 @@ Phases, each reported on its own line:
    with ``--epochs 1`` auto-restores step 8 and logs steps 9-12;
    ``evaluate --resume`` reproduces the trainer's last val MPJPE;
    ``predict`` covers the val split once through a padded tail batch; a
-   2-step ``--no_freeze_batchnorm`` run moves the running statistics.
+   2-step ``--no_freeze_batchnorm`` run moves the running statistics;
+11. real_data — the FPHAB and HO-3D path: nvJPEG's decodes of the
+   committed JPEG fixtures (``tests/data/jpeg/``) against their cv2 decodes
+   within ``JPEG_BARS`` (a copy shifted by ``JPEG_FAULT`` levels on one
+   channel must fail them), a 1920 x 1080 frame encoded and decoded by
+   nvJPEG within ``ROUNDTRIP_BARS`` of its pixels (the same fault must fail
+   them), a 640 x 480 PNG of every row filter bit for bit, one decode of
+   each timed; then, in a temporary directory under
+   ``--out``, an FPHAB tree (3 train + 1 test sequences of 16 1920 x 1080
+   frames encoded by nvJPEG, MANO fits of the synthetic model, their joints
+   as world-frame skeletons, object poses, a 20000-face PLY) and an HO-3D
+   tree (2 sequences of 16 640 x 480 PNGs, meta pickles, a dense OBJ);
+   ``trainwarp --check_data`` exits 0 with the object decimated to <= 1000
+   faces; ``trainwarp`` at full width (256^2, batch 16, hand + object, a
+   quarter annotated, 1 epoch) with K1 at C = 2, K2, K3 and K4 once per
+   step, every JPEG through nvJPEG (the CPU decoder fails the phase), finite
+   terms and a checkpoint; one batch's host time; the HO-3D fit-vertex
+   memmap's build time; ``evaluate --check_data`` exits 0 and ``evaluate``
+   of the FPHAB checkpoint gives a finite MPJPE on HO-3D.
 
 Kernel times are CUDA-event means over many launches, with the stream held
 while the host issues them (``cuda_ms_rotating``), so they are the card's
@@ -195,7 +213,7 @@ def phase_build(out_dir: str) -> None:
     per_lib = cuda_build.build()
     total = time.perf_counter() - t0
     report = []
-    for name in cuda_build.KERNELS:
+    for name in cuda_build.SOURCES:
         text = cuda_build.build_log(name)
         report.append(f"== {name}\n{text}")
         log(f"build {name}: {per_lib.get(name, 0.0):.1f}s; ptxas: {ptxas_summary(text)}")
@@ -994,18 +1012,28 @@ def cli_argv(flags: dict) -> list:
     return out
 
 
-def run_cli(main, argv: list, device) -> tuple:
+def run_cli(main, argv: list, device, exits: bool = False) -> tuple:
     """``main(argv, device=...)`` with its printed lines captured and
-    echoed; returns (result, stdout text)."""
+    echoed; returns (result, stdout text). ``exits``: the call ends in
+    ``SystemExit`` (``--check_data``), whose code must be 0."""
     import contextlib
     import io
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        result = main(argv, device=device)
+        if exits:
+            try:
+                main(argv, device=device)
+                result = "returned"
+            except SystemExit as stop:
+                result = stop.code
+        else:
+            result = main(argv, device=device)
     text = buf.getvalue()
     for line in text.splitlines():
         log(f"  | {line}")
+    if exits and result != 0:
+        fail(f"{main.__module__} {' '.join(argv)}: exit {result}, want 0")
     return result, text
 
 
@@ -1133,6 +1161,352 @@ def phase_cli(torch, device, smi: str, out_dir: str, kernels: dict) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# Phase 11: FPHAB and HO-3D trees in the official layouts
+# (tools/fixture_trees.py), read by the port's parsers and CLIs.
+REAL_FRAMES = 16  # frames per sequence
+FPHAB_TRAIN = ("Subject_1", "Subject_3", "Subject_4")
+FPHAB_TEST = "Subject_2"
+FPHAB_ACTION = "open_milk"  # an action with object poses (the milk carton)
+FPHAB_HW = (1080, 1920)
+HO3D_SEQS = ("ABF10", "MC1")
+HO3D_HW = (480, 640)
+HO3D_CAM = np.array([[617.3, 0.0, 320.0], [0.0, 617.3, 240.0], [0.0, 0.0, 1.0]], np.float32)
+DENSE_POINTS = 10002  # on a sphere: a 20000-face hull, as dense as the scanned models
+OBJ_BUDGET = 1000  # the face cap get_dataset decimates the real datasets' objects to
+REAL_STEPS = 3  # 3 train sequences x 16 frames = 48 pairs = 3 steps of 16
+JPEG_FIXTURES = ("odd_420", "odd_444")
+# nvJPEG + jpeg_ycc_rgb against cv2 (libjpeg-turbo) on the committed
+# fixtures: max and mean |diff| in levels (nvJPEG's inverse DCT is not
+# libjpeg-turbo's). Measured on the H100: max 3 on both, mean 0.0315
+# (4:2:0) and 0.0501 (4:4:4); nvJPEG's own RGB output, which replicates
+# chroma, was 78 and 1.073 on the 4:2:0 fixture.
+JPEG_BARS = {"max": 4, "mean": 0.1}
+JPEG_FAULT = 8  # levels added to one channel: the check must fail
+# A 1920 x 1080 frame (a gradient with noise and the hand's discs) encoded by
+# nvJPEG at quality 90, 4:2:0, and decoded by nvJPEG + jpeg_ycc_rgb, against
+# the frame's own pixels: max and mean |diff| in levels, and the largest
+# channel's |mean signed diff|. Measured on the H100: max 46, mean 4.7423,
+# bias 2.0548; with JPEG_FAULT on one channel: max 46, mean 5.4806, bias
+# 6.2653, which must fail the mean and bias bars.
+ROUNDTRIP_BARS = {"max": 50, "mean": 5.0, "bias": 2.5}
+
+
+def jpeg_stats(got: np.ndarray, want: np.ndarray) -> dict:
+    diff = np.abs(got.astype(np.int64) - want.astype(np.int64))
+    bias = (got.astype(np.int64) - want.astype(np.int64)).reshape(-1, got.shape[-1]).mean(0)
+    return {"max": int(diff.max()), "mean": float(diff.mean()), "bias": float(np.abs(bias).max()),
+            "differ": float((diff > 0).mean()), "over2": float((diff > 2).mean())}
+
+
+def jpeg_within_bars(stats: dict) -> bool:
+    return stats["max"] <= JPEG_BARS["max"] and stats["mean"] <= JPEG_BARS["mean"]
+
+
+def hand_frames(torch, device, joints_m, k, hw, seed: int):
+    """uint8 (N, H, W, 3) frames on ``device``: a colour gradient with noise
+    and the hand as discs around its projected joints."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    h, w = hw
+    ys, xs = torch.meshgrid(torch.arange(h, device=device, dtype=torch.float32),
+                            torch.arange(w, device=device, dtype=torch.float32), indexing="ij")
+    base = torch.stack([60 + 120 * xs / w, 50 + 100 * ys / h, 170 - 90 * (xs + ys) / (w + h)], -1)
+    j = torch.as_tensor(joints_m, dtype=torch.float32, device=device)
+    kk = torch.as_tensor(k, dtype=torch.float32, device=device)
+    pix = j @ kk.T
+    pix = pix[..., :2] / pix[..., 2:3]  # (N, 21, 2)
+    radius = 0.012 * float(k[0, 0]) / j[..., 2].mean(-1)  # 12 mm at the hand's depth
+    out = []
+    for n in range(len(j)):
+        d2 = ((xs[..., None] - pix[n, :, 0]) ** 2 + (ys[..., None] - pix[n, :, 1]) ** 2).amin(-1)
+        hand = (d2 < radius[n] ** 2)[..., None]
+        noise = torch.randn(base.shape, generator=g, device=device) * 6
+        skin = torch.tensor([205.0, 150.0, 120.0], device=device)
+        out.append(torch.where(hand, skin, base) + noise)
+    return torch.stack(out).clamp(0, 255).round().to(torch.uint8)
+
+
+def mano_clip(torch, mano, rng, n: int, trans) -> tuple:
+    """A sequence of n MANO fits moving linearly between two random poses:
+    (pose (n, 48) with the root first, betas (n, 10), trans (n, 3)) and the
+    joints (n, 21, 3) in meters, in the standard order."""
+    from hocon_torch.geometry.mano import mano_forward
+
+    ends = [np.concatenate([rng.normal(0, 0.25, 3), rng.normal(0, 0.35, 45)]) for _ in range(2)]
+    t = np.linspace(0.0, 1.0, n)[:, None]
+    pose = ((1 - t) * ends[0] + t * ends[1]).astype(np.float32)
+    betas = np.tile(rng.normal(0, 0.8, 10), (n, 1)).astype(np.float32)
+    tr = (np.asarray(trans) + t * rng.normal(0, 0.02, 3)).astype(np.float32)
+    dev = mano.v_template.device
+    with torch.no_grad():
+        p, b, tt = (torch.from_numpy(a).to(dev) for a in (pose, betas, tr))
+        _, joints = mano_forward(mano, p[:, 3:], b, p[:, :3], trans=tt, use_pca=False,
+                                 flat_hand_mean=False, scale_mm=False)
+    return pose, betas, tr, joints.cpu().numpy()
+
+
+def write_fphab_tree(torch, device, mano, root: str) -> None:
+    """3 train sequences and 1 test sequence of REAL_FRAMES 1920 x 1080
+    frames (nvJPEG, quality 90, 4:2:0) in ``FPHAB_ACTION``, with MANO fits,
+    the fits' joints as skeletons (world mm, through the inverse of
+    ``CAM_EXTR``), object poses beside the hand, and a dense PLY object."""
+    from hocon_torch.data import fphab as TF
+    from hocon_torch.data.images import encode_jpeg
+    from tools import fixture_trees as FT
+
+    rng = np.random.default_rng(11)
+    world_from_cam = np.linalg.inv(TF.CAM_EXTR.astype(np.float64))
+    for si, subject in enumerate(FPHAB_TRAIN + (FPHAB_TEST,)):
+        pose, betas, trans, joints = mano_clip(torch, mano, rng, REAL_FRAMES, [0.0, 0.03, 0.5])
+        world = (joints * 1000.0) @ world_from_cam[:3, :3].T + world_from_cam[:3, 3]
+        skel = np.empty_like(world)
+        skel[:, list(TF.REORDER_IDX)] = world  # the standard order back to FPHAB's
+        obj_cam = np.tile(np.eye(4), (REAL_FRAMES, 1, 1))
+        obj_cam[:, :3, 3] = joints[:, 0] * 1000.0 + [60.0, -20.0, 30.0]
+        frames = hand_frames(torch, device, joints, TF.CAM_INTR, FPHAB_HW, seed=si)
+        fits = {i: {"pose": pose[i], "shape": betas[i], "trans": trans[i]}
+                for i in range(REAL_FRAMES)}
+        FT.write_fphab_sequence(root, subject, FPHAB_ACTION, "1", skel,
+                                [encode_jpeg(f, 90, "420") for f in frames],
+                                world_from_cam @ obj_cam, fits)
+    verts, faces = FT.sphere_mesh(DENSE_POINTS, 40.0, seed=3)  # mm
+    FT.write_ply(os.path.join(root, "Object_models", "milk_model", "milk_model.ply"),
+                 verts, faces, binary=True)
+
+
+def write_ho3d_tree(torch, device, mano, root: str) -> None:
+    """2 train sequences of REAL_FRAMES 640 x 480 PNG frames (every row
+    filter in turn), meta pickles in HO-3D's conventions (OpenGL camera,
+    MANO joint order), and a dense OBJ object."""
+    from hocon_torch.data import ho3d as TH
+    from hocon_torch.data.images import encode_png
+    from tools import fixture_trees as FT
+
+    rng = np.random.default_rng(12)
+    for si, seq in enumerate(HO3D_SEQS):
+        # The fits live in the OpenGL frame (in front of the camera is -z).
+        pose, betas, trans, joints_gl = mano_clip(torch, mano, rng, REAL_FRAMES,
+                                                  [0.0, -0.02, -0.45])
+        joints_cv = joints_gl @ TH.COORD_FLIP.T
+        frames = hand_frames(torch, device, joints_cv, HO3D_CAM, HO3D_HW, seed=10 + si).cpu()
+        for i in range(REAL_FRAMES):
+            ho3d_order = np.empty_like(joints_gl[i])
+            ho3d_order[list(TH.MANO_TO_STANDARD)] = joints_gl[i]
+            meta = {"camMat": HO3D_CAM, "handJoints3D": ho3d_order, "handPose": pose[i],
+                    "handBeta": betas[i], "handTrans": trans[i], "objName": "003_cracker_box",
+                    "objRot": rng.normal(0, 1, 3).astype(np.float32),
+                    "objTrans": (joints_gl[i, 0] + [0.05, 0.0, -0.03]).astype(np.float32)}
+            FT.write_ho3d_frame(root, "train", seq, i, meta, encode_png(frames[i].numpy()))
+    verts, faces = FT.sphere_mesh(DENSE_POINTS, 0.05, seed=4)
+    FT.write_obj(os.path.join(root, "models_root", "models", "003_cracker_box",
+                              "textured_simple.obj"), verts, faces)
+
+
+def check_decoders(torch, device, smi: str) -> None:
+    """nvJPEG with the ``jpeg_ycc_rgb`` kernel against the committed cv2
+    decodes and a 1920 x 1080 frame against its own pixels after nvJPEG's
+    encode (each with a planted fault), the kernel against its plain version
+    bit for bit, a PNG of every row filter bit for bit, and the decodes
+    timed."""
+    from hocon_torch.data import images
+
+    jpeg_dir = os.path.join(HERE, "tests", "data", "jpeg")
+    for name in JPEG_FIXTURES:
+        with open(os.path.join(jpeg_dir, f"{name}.jpeg"), "rb") as fh:
+            data = fh.read()
+        want = np.load(os.path.join(jpeg_dir, f"{name}.npy"))
+        planes = images.jpeg_planes_cuda(data, device)
+        got = images.ycc_to_rgb_cuda(*planes)
+        if not torch.equal(got, images.ycc_to_rgb_plain(*planes)):
+            fail(f"real_data: jpeg_ycc_rgb differs from its plain version on {name}")
+        got = got.cpu().numpy()
+        stats = jpeg_stats(got, want)
+        faulty = got.astype(np.int64)
+        faulty[..., 0] = np.clip(faulty[..., 0] + JPEG_FAULT, 0, 255)
+        fault = jpeg_stats(faulty, want)
+        log(f"real_data: nvJPEG + jpeg_ycc_rgb {name} {want.shape[1]}x{want.shape[0]} against "
+            f"cv2: max |diff| {stats['max']}, mean {stats['mean']:.4f}, {100 * stats['differ']:.2f} "
+            f"% of values differ, {100 * stats['over2']:.3f} % by more than 2 (bars: max "
+            f"{JPEG_BARS['max']}, mean {JPEG_BARS['mean']}); the kernel equals its plain version; "
+            f"+{JPEG_FAULT} levels on one channel: max {fault['max']}, mean {fault['mean']:.4f}")
+        if got.shape != want.shape or not jpeg_within_bars(stats):
+            fail(f"real_data: the decode of {name} is not within the bars of cv2's")
+        if jpeg_within_bars(fault):
+            fail(f"real_data: a +{JPEG_FAULT}-level fault in {name} passes the bars")
+
+    rng = np.random.default_rng(5)
+    h, w = HO3D_HW
+    px = np.clip(np.mgrid[0:h, 0:w][1][..., None] * [0.3, 0.2, 0.1] + rng.normal(0, 20, (h, w, 3)),
+                 0, 255).astype(np.uint8)
+    png = images.encode_png(px)  # row filters 0-4 in turn
+    if not np.array_equal(images.decode_png(png), px):
+        fail("real_data: the PNG of every row filter did not decode to its pixels")
+    t0 = time.perf_counter()
+    for _ in range(5):
+        images.decode_png(png)
+    png_ms = (time.perf_counter() - t0) / 5 * 1e3
+
+    frame = hand_frames(torch, device, np.array([[[0.0, 0.0, 0.5]] * 21]), np.array(
+        [[1395.7, 0, 935.7], [0, 1395.7, 540.7], [0, 0, 1]]), FPHAB_HW, seed=0)[0]
+    jpeg = images.encode_jpeg(frame, 90, "420")
+    planes = images.jpeg_planes_cuda(jpeg, device)
+    if not torch.equal(images.ycc_to_rgb_cuda(*planes), images.ycc_to_rgb_plain(*planes)):
+        fail("real_data: jpeg_ycc_rgb differs from its plain version on the 1920x1080 frame")
+    decoded = images.decode_jpeg_cuda(jpeg, device).cpu().numpy()
+    roundtrip = jpeg_stats(decoded, frame.cpu().numpy())
+    faulty = decoded.astype(np.int64)
+    faulty[..., 0] = np.clip(faulty[..., 0] + JPEG_FAULT, 0, 255)
+    fault = jpeg_stats(faulty, frame.cpu().numpy())
+    log(f"real_data: the {FPHAB_HW[1]}x{FPHAB_HW[0]} frame encoded (quality 90, 4:2:0) and "
+        f"decoded by nvJPEG + jpeg_ycc_rgb against its pixels: max |diff| {roundtrip['max']}, "
+        f"mean {roundtrip['mean']:.4f}, channel bias {roundtrip['bias']:.4f} (bars: "
+        f"{ROUNDTRIP_BARS}); +{JPEG_FAULT} levels on one channel: max {fault['max']}, "
+        f"mean {fault['mean']:.4f}, bias {fault['bias']:.4f}")
+    within = lambda st: all(st[k] <= ROUNDTRIP_BARS[k] for k in ROUNDTRIP_BARS)  # noqa: E731
+    if decoded.shape != tuple(frame.shape) or not within(roundtrip):
+        fail("real_data: the 1920x1080 round trip is not within its bars")
+    if within(fault):
+        fail(f"real_data: a +{JPEG_FAULT}-level fault in the 1920x1080 round trip passes its bars")
+    kernel_ms = cuda_ms(torch, lambda: images.ycc_to_rgb_cuda(*planes), 200)
+    plain_ms = cuda_ms(torch, lambda: images.ycc_to_rgb_plain(*planes), 20)
+    nbytes = sum(p.numel() for p in planes[:3]) + frame.numel()
+    for _ in range(3):
+        images.decode_jpeg_cuda(jpeg, device).cpu()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        images.decode_jpeg_cuda(jpeg, device).cpu()
+    jpeg_ms = (time.perf_counter() - t0) / 10 * 1e3
+    log(f"real_data: a PNG of every row filter decodes to its pixels bit for bit; decode time "
+        f"{w}x{h} PNG {png_ms:.1f} ms (host, numpy), {FPHAB_HW[1]}x{FPHAB_HW[0]} JPEG "
+        f"({len(jpeg)} bytes) {jpeg_ms:.2f} ms (nvJPEG, jpeg_ycc_rgb and the copy to the host); "
+        f"jpeg_ycc_rgb "
+        f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{nbytes / PEAK_BYTES * 1e3:.4f} ms (bytes: the planes read once, RGB written once); "
+        f"card {smi}")
+
+
+def phase_real_data(torch, device, smi: str, out_dir: str) -> None:
+    """Phase 11: the decoders, then the port's CLIs on FPHAB and HO-3D trees
+    (see the module note). Every JPEG on the path goes through nvJPEG: the
+    CPU decoder is replaced by a failure for the phase."""
+    import shutil
+    import tempfile
+
+    from hocon_torch.cli import evaluate, trainwarp
+    from hocon_torch.data import images
+    from hocon_torch.data import ho3d as TH
+    from hocon_torch.geometry.mano import synthetic_mano_model
+    from hocon_torch.render import raster_cuda as RC
+    from hocon_torch.render import sample_cuda as SC
+
+    t_phase = time.perf_counter()
+    check_decoders(torch, device, smi)
+    here, cpu_decoder = os.getcwd(), images.decode_jpeg_cpu
+    cache_env = os.environ.get("HOCON_CACHE_DIR")
+    work = tempfile.mkdtemp(prefix="real-", dir=out_dir)
+    images.decode_jpeg_cpu = lambda data: fail("real_data: a JPEG reached the CPU decoder")
+    os.environ["HOCON_CACHE_DIR"] = os.path.join(work, "cache")
+    os.chdir(work)
+    try:
+        mano = synthetic_mano_model(0, device=device)
+        fphab, ho3d, assets = (os.path.join(work, d) for d in ("fphab", "ho3d", "mano"))
+        os.makedirs(assets)
+        t0 = time.perf_counter()
+        write_fphab_tree(torch, device, mano, fphab)
+        write_ho3d_tree(torch, device, mano, ho3d)
+        log(f"real_data: wrote FPHAB ({len(FPHAB_TRAIN)} + 1 sequences of {REAL_FRAMES} "
+            f"{FPHAB_HW[1]}x{FPHAB_HW[0]} JPEGs) and HO-3D ({len(HO3D_SEQS)} x {REAL_FRAMES} "
+            f"{HO3D_HW[1]}x{HO3D_HW[0]} PNGs) trees in {time.perf_counter() - t0:.1f} s; "
+            f"card {smi}")
+
+        flags = {"dataset": "fhbhands", "data_root": fphab, "image_size": RES,
+                 "batch_size": PAIRS, "use_objects": True, "mano_assets": assets}
+        _, text = run_cli(trainwarp.main, cli_argv({**flags, "check_data": True}), device,
+                          exits=True)
+        faces = re.search(r"obj (\d+)v/(\d+)f", text)
+        if faces is None or not 0 < int(faces.group(2)) <= OBJ_BUDGET:
+            fail(f"real_data: the object was not decimated to <= {OBJ_BUDGET} faces")
+        log(f"real_data: trainwarp --check_data exit 0; the {2 * DENSE_POINTS - 4}-face PLY "
+            f"decimated to {faces.group(2)} faces, {faces.group(1)} vertices")
+
+        torch.cuda.synchronize()
+        RC.raster_fwd.launches = RC.raster_bwd.launches = 0
+        SC.sample_fwd.launches = SC.sample_bwd.launches = 0
+        RC.raster_fwd.launches_by_attrs = {}
+        images.ycc_to_rgb_cuda.launches = 0
+        t0 = time.perf_counter()
+        state, text = run_cli(trainwarp.main, cli_argv({
+            **flags, "fraction": 0.25, "epochs": 1, "lr": 5e-4, "exp_id": "fphab"}), device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_c = dict(RC.raster_fwd.launches_by_attrs)
+        launches = {"raster_fwd": by_c.get(2, 0), "raster_bwd": RC.raster_bwd.launches,
+                    "sample_fwd": SC.sample_fwd.launches, "sample_bwd": SC.sample_bwd.launches}
+        decodes = images.ycc_to_rgb_cuda.launches  # one jpeg_ycc_rgb launch per nvJPEG decode
+        want_decodes = REAL_STEPS * PAIRS * 2 + REAL_FRAMES  # the pairs' two frames, val frames
+        if launches != {k: REAL_STEPS for k in launches} or set(by_c) != {2}:
+            fail(f"real_data: launches {launches} (K1 by C {by_c}): want K1 at C = 2, K2, K3 "
+                 f"and K4 once per train step ({REAL_STEPS})")
+        if decodes != want_decodes:
+            fail(f"real_data: {decodes} nvJPEG decodes, want {want_decodes}")
+        run = os.path.join(work, "checkpoints", "fphab")
+        with open(os.path.join(run, "metrics.jsonl")) as fh:
+            records = [json.loads(line) for line in fh]
+        if (state.step != REAL_STEPS or [r["step"] for r in records] != [1, 2, 3]
+                or not all(math.isfinite(v) for r in records for v in r.values())
+                or min(r["mask_area"] for r in records) <= 0):
+            fail(f"real_data: trainwarp on FPHAB logged {records}, want {REAL_STEPS} finite steps")
+        ckpt = os.path.join(run, "ckpt")
+        if not os.path.exists(os.path.join(ckpt, str(REAL_STEPS), "state.pt")):
+            fail("real_data: trainwarp on FPHAB wrote no checkpoint")
+        with open(os.path.join(run, "epochs.json")) as fh:
+            epochs = json.load(fh)
+        rate = [e["steps_per_sec"] for e in epochs if e["split"] == "train"][0]
+        log(f"real_data: trainwarp on FPHAB, {REAL_STEPS} steps of {PAIRS} pairs at {RES}^2: "
+            f"set-up {cli_setup_s(text):.3f} s (MANO fits, decimation, model), steps_per_sec "
+            f"{rate:.3f} (past 2 warm-up steps), the call {wall:.1f} s with eval and snapshot; "
+            f"launches {launches}; {decodes} nvJPEG decodes; card {smi}")
+
+        from hocon_torch.data.factory import get_dataset
+        from hocon_torch.data.pipeline import BatchLoader
+
+        ds = get_dataset("fhbhands", "train", fphab, RES, fraction=0.25, use_objects=True,
+                         pair_mode=True, mano=mano, device=device)
+        batches = BatchLoader(ds, PAIRS, prefetch=0).epoch(0)
+        next(batches)
+        t0 = time.perf_counter()
+        next(batches)
+        host_s = time.perf_counter() - t0
+        log(f"real_data: one FPHAB batch of {PAIRS} pairs assembled on the host in {host_s:.3f} s "
+            f"({2 * PAIRS} nvJPEG decodes of {FPHAB_HW[1]}x{FPHAB_HW[0]}, crops, jitter); "
+            f"card {smi}")
+
+        t0 = time.perf_counter()
+        TH.HO3D(ho3d, split="train", mano=mano)
+        log(f"real_data: HO-3D fit-vertex memmap of {len(HO3D_SEQS) * REAL_FRAMES} frames built "
+            f"in {time.perf_counter() - t0:.3f} s (meta pickles, MANO on the card, the file); "
+            f"card {smi}")
+        ho3d_flags = {"dataset": "ho3dv2", "data_root": ho3d, "val_split": "train",
+                      "image_size": RES, "batch_size": PAIRS, "use_objects": True,
+                      "mano_assets": assets}
+        run_cli(evaluate.main, cli_argv({**ho3d_flags, "check_data": True}), device, exits=True)
+        t0 = time.perf_counter()
+        metrics, _ = run_cli(evaluate.main, cli_argv({**ho3d_flags, "resume": ckpt}), device)
+        if not (math.isfinite(metrics["mpjpe_mm"]) and math.isfinite(metrics["obj_verts_err_mm"])):
+            fail(f"real_data: evaluate on HO-3D gave {metrics}")
+        log(f"real_data: evaluate --check_data on HO-3D exit 0; evaluate of the FPHAB run on "
+            f"HO-3D: MPJPE {metrics['mpjpe_mm']:.2f} mm over {len(HO3D_SEQS) * REAL_FRAMES} "
+            f"frames in {time.perf_counter() - t0:.1f} s; card {smi}")
+        log(f"real_data: the phase took {time.perf_counter() - t_phase:.1f} s; card {smi}")
+    finally:
+        images.decode_jpeg_cpu = cpu_decoder
+        if cache_env is None:
+            os.environ.pop("HOCON_CACHE_DIR", None)
+        else:
+            os.environ["HOCON_CACHE_DIR"] = cache_env
+        os.chdir(here)
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> None:
     import torch
 
@@ -1170,6 +1544,7 @@ def main() -> None:
     # The slice's main path, the trainer's CLI: its launches go into the table.
     cli = {}
     phase_cli(torch, device, smi, out_dir, cli)
+    phase_real_data(torch, device, smi, out_dir)
     for kern, name in ((k1, "raster_fwd"), (k1c3, "raster_fwd C=3"), (k2, "raster_bwd"),
                        (k3, "sample_fwd"), (k4, "sample_bwd")):
         kern["launches"] = cli[name]

@@ -22,6 +22,7 @@ import torch
 
 from hocon_torch.cli import opts
 from hocon_torch.cli.train import build_model
+from hocon_torch.data.check import check_dataset
 from hocon_torch.data.factory import get_dataset
 from hocon_torch.data.pipeline import BatchLoader
 from hocon_torch.device import resolve_device
@@ -45,7 +46,8 @@ def build_parser() -> argparse.ArgumentParser:
 def load_for_eval(args, device: torch.device, optimizer=None):
     """The val split's loader (every sample once), and the train state of
     the model, restored from ``--resume`` when given; returns (loader,
-    state, eval step)."""
+    state, eval step). With ``--check_data``, checks the split instead and
+    exits (code 1 on an anomaly)."""
     mano = opts.load_mano_or_synthetic(args.mano_assets, args.mano_side, device=device)
     ds = get_dataset(
         args.dataset, args.val_split, args.data_root, args.image_size,
@@ -55,6 +57,9 @@ def load_for_eval(args, device: torch.device, optimizer=None):
         decimate_objects_to=args.decimate_objects_to,
         uint8_images=args.uint8_images, device=device,
     )
+    if args.check_data:
+        raise SystemExit(1 if check_dataset(ds, args.val_split,
+                                            max_seqs=args.check_data_seqs) else 0)
     loader = BatchLoader(ds, args.batch_size, shuffle=False, drop_last=False)
     model = build_model(args, mano, device)
     state = create_train_state(model, optimizer or make_optimizer())

@@ -119,7 +119,7 @@ def add_data_opts(p: argparse.ArgumentParser):
     g.add_argument("--check_data", action="store_true",
                    help="parse the dataset tree, pull one sample per "
                         "sequence through the full pipeline, print shapes/"
-                        "ranges/anomalies, and exit (not ported yet)")
+                        "ranges/anomalies, and exit (1 if any anomaly)")
     g.add_argument("--check_data_seqs", type=int, default=0,
                    help="cap sequences checked by --check_data (0 = all)")
 
@@ -150,7 +150,6 @@ def check_unported(args) -> None:
     """Raise ``NotImplementedError`` for a flag whose code is not ported."""
     unported = (
         (getattr(args, "workers", 0) > 0, "--workers > 0 (the DataLoader workers)", 11),
-        (getattr(args, "check_data", False), "--check_data (check_dataset)", 11),
         (getattr(args, "torch_trunk", ""), "--torch_trunk (the torchvision importer)", 12),
         (getattr(args, "torch_ckpt", ""), "--torch_ckpt (the reference checkpoint importer)", 12),
         (getattr(args, "vis_freq", 0) > 0, "--vis_freq > 0 (visualisation)", 12),

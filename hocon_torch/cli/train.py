@@ -21,6 +21,7 @@ import time
 import torch
 
 from hocon_torch.cli import opts
+from hocon_torch.data.check import check_dataset
 from hocon_torch.data.factory import get_dataset
 from hocon_torch.data.pipeline import BatchLoader
 from hocon_torch.device import resolve_device
@@ -75,7 +76,9 @@ def obj_lambdas(args):
 
 def setup_common(args, device: torch.device):
     """MANO, the run directory (flags saved), its metric writer, and the
-    train and val loaders over datasets rendered on ``device``."""
+    train and val loaders over datasets made on ``device``. With
+    ``--check_data``, checks both datasets instead and exits (code 1 if
+    either shows an anomaly)."""
     mano = opts.load_mano_or_synthetic(args.mano_assets, args.mano_side, device=device)
     run_dir = os.path.join("checkpoints", args.exp_id)
     save_args(args, run_dir)
@@ -115,6 +118,10 @@ def setup_common(args, device: torch.device):
         decimate_objects_to=args.decimate_objects_to,
         uint8_images=args.uint8_images, device=device,
     )
+    if args.check_data:
+        n_bad = check_dataset(train_ds, args.split, max_seqs=args.check_data_seqs)
+        n_bad += check_dataset(val_ds, args.val_split, max_seqs=args.check_data_seqs)
+        raise SystemExit(1 if n_bad else 0)
     train_loader = BatchLoader(train_ds, args.batch_size, seed=args.seed,
                                prefetch=args.prefetch)
     # drop_last=False: validation scores every sample exactly once; the

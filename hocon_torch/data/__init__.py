@@ -1,2 +1,4 @@
-"""Data: the synthetic dataset, ``HandDataset`` (crop / augment / labels),
-``get_dataset`` and ``BatchLoader``, ported from ``hocon.data``."""
+"""Data: the synthetic dataset, the FPHAB and HO-3D parsers, ``HandDataset``
+(crop / augment / labels), frames read without cv2 (``images``),
+``check_dataset``, ``get_dataset`` and ``BatchLoader``, ported from
+``hocon.data``."""

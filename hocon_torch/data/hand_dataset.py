@@ -11,10 +11,14 @@ and then every frame's affine jitter; each frame of a pair gets the colour
 jitter of its own ``default_rng((seed, i, 7))``, so both frames of a pair
 get the same colour jitter.
 
+Frames given by path are read with ``images.read_image`` on the config's
+``decode_device`` (a JPEG through nvJPEG on the card); everything else in
+``__getitem__`` is host code.
+
 Pose-dataset protocol (duck-typed):
   __len__()
   get_sample(i) -> dict with keys:
-    'image'        (H, W, 3) uint8 or float
+    'image'        (H, W, 3) uint8 or float   (or 'image_path')
     'joints3d_cam' (21, 3) float  meters, camera frame
     'verts3d_cam'  (778, 3) float or None
     'camintr'      (3, 3)
@@ -42,6 +46,7 @@ from hocon_torch.data.cropping import (
     transform_intrinsics,
     warp_image,
 )
+from hocon_torch.data.images import read_image
 from hocon_torch.data.meshes import bbox_corners
 from hocon_torch.data.pipeline import tree_stack
 from hocon_torch.data.queries import TransQueries
@@ -65,6 +70,9 @@ class HandDatasetConfig:
     # device (the train steps detect the dtype): 4x less host-to-device
     # transfer, for <= 0.5/255 of crop quantization.
     uint8_images: bool = False
+    # Where frames given by 'image_path' are decoded (see images.read_image;
+    # None = CUDA). get_dataset sets it to its device.
+    decode_device: str | torch.device | None = None
 
 
 def _project(points3d: np.ndarray, k: np.ndarray) -> np.ndarray:
@@ -72,13 +80,10 @@ def _project(points3d: np.ndarray, k: np.ndarray) -> np.ndarray:
     return hom[:, :2] / np.maximum(hom[:, 2:3], 1e-8)
 
 
-def _load_image(raw: dict) -> np.ndarray:
-    if raw.get("image") is None:
-        raise NotImplementedError(
-            "images loaded from 'image_path' come with the FPHAB / HO-3D "
-            "parsers (ROADMAP queue 1, item 11)"
-        )
-    return raw["image"]
+def _load_image(raw: dict, device) -> np.ndarray:
+    if raw.get("image") is not None:
+        return raw["image"]
+    return read_image(raw["image_path"], device)
 
 
 class HandDataset:
@@ -105,7 +110,7 @@ class HandDataset:
         color_rng: np.random.Generator | None = None,
     ) -> dict:
         cfg = self.cfg
-        image = _load_image(raw).astype(np.float32)
+        image = _load_image(raw, cfg.decode_device).astype(np.float32)
         if image.max() > 2.0:
             image = image / 255.0
         joints3d = np.asarray(raw["joints3d_cam"], np.float32)

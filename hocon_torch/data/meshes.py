@@ -1,10 +1,12 @@
-"""Mesh utilities the main path needs.
+"""Mesh utilities: bounding-box corners, outward winding, decimation.
 
-Port of ``bbox_corners`` and ``orient_faces_outward`` from
-``hocon/data/meshes.py`` (numpy only): the object's bounding-box corners
-(the HO-3D corner-error label), and the rewinding that makes
-``cross(v1 - v0, v2 - v0)`` point out of the mesh, as backface culling
-assumes.
+Port of ``hocon/data/meshes.py`` (numpy only, so the same input gives the
+same arrays bit for bit): the object's bounding-box corners (the HO-3D
+corner-error label), the rewinding that makes ``cross(v1 - v0, v2 - v0)``
+point out of the mesh, as backface culling assumes, and the
+vertex-clustering decimation that brings a scanned object model (FPHAB's
+PLYs, YCB's ``textured_simple.obj``: ~10-20k faces) to the rasterizer's
+face budget.
 """
 
 from __future__ import annotations
@@ -154,3 +156,144 @@ def orient_faces_outward(
     sel = flip_comp[comp_of]
     out[sel] = out[sel][:, ::-1]
     return out.astype(np.int32)
+
+
+def _cluster_once(
+    verts: np.ndarray, faces: np.ndarray, pitch: float
+) -> tuple[np.ndarray, np.ndarray]:
+    lo = verts.min(axis=0)
+    cells = np.floor((verts - lo) / max(pitch, 1e-12)).astype(np.int64)
+    # Unique cell id per vertex -> cluster index.
+    _, cluster, counts = np.unique(
+        cells, axis=0, return_inverse=True, return_counts=True
+    )
+    # Cluster centroids.
+    centroids = np.zeros((len(counts), 3), np.float64)
+    np.add.at(centroids, cluster, verts)
+    centroids /= counts[:, None]
+    new_faces = cluster[faces]
+    # Drop degenerate faces (any two corners merged).
+    keep = (
+        (new_faces[:, 0] != new_faces[:, 1])
+        & (new_faces[:, 1] != new_faces[:, 2])
+        & (new_faces[:, 0] != new_faces[:, 2])
+    )
+    new_faces = new_faces[keep]
+    # Drop duplicate faces (ignoring winding-preserving rotation).
+    if len(new_faces):
+        key = np.sort(new_faces, axis=1)
+        _, first = np.unique(key, axis=0, return_index=True)
+        new_faces = new_faces[np.sort(first)]
+    return centroids.astype(np.float32), new_faces.astype(np.int32)
+
+
+def _compact(
+    verts: np.ndarray, faces: np.ndarray
+) -> tuple[np.ndarray, np.ndarray]:
+    """Drop vertices not referenced by any face; reindex faces."""
+    used = np.unique(faces)
+    remap = np.full(len(verts), -1, np.int64)
+    remap[used] = np.arange(len(used))
+    return verts[used], remap[faces]
+
+
+def decimate_mesh(
+    verts: np.ndarray,
+    faces: np.ndarray,
+    target_faces: int,
+    max_iters: int = 32,
+    target_verts: int | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Reduce (verts, faces) to <= target_faces AND <= target_verts.
+
+    The returned faces are orientation-normalized (coherent, outward —
+    see ``orient_faces_outward``): scan meshes arrive with no winding
+    guarantee and clustering can fold an occasional face, while the
+    renderer's backface culling assumes outward winding.
+
+    Both budgets are GUARANTEED (callers size rasterizer/padding buffers
+    from them — over-budget meshes would be truncated downstream into faces
+    with out-of-range vertex indices); ``target_verts`` defaults to
+    ``target_faces`` (a closed 2-manifold has V = F/2 + 2, so the face
+    budget is a comfortable vertex bound once unreferenced vertices are
+    compacted away). Returns the input unchanged when it already fits.
+    Search: the grid pitch starts at 1/64 of the bbox diagonal and grows by
+    sqrt(2) until the budgets are met; if a step overshoots to an empty
+    mesh, the pitch is bisected into the (over-budget, empty) gap (the
+    lower bracket falls back to an effectively-zero pitch when even the
+    first step emptied the mesh). If no pitch fits (pathological geometry),
+    the largest-area faces of the coarsest over-budget clustering are kept,
+    shrinking the kept set until the referenced-vertex budget also holds —
+    a valid sub-mesh, never out-of-range indices.
+    """
+    v, f = _decimate_mesh_impl(verts, faces, target_faces, max_iters,
+                               target_verts)
+    return v, orient_faces_outward(v, f)
+
+
+def _decimate_mesh_impl(
+    verts: np.ndarray,
+    faces: np.ndarray,
+    target_faces: int,
+    max_iters: int = 32,
+    target_verts: int | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    verts = np.asarray(verts, np.float32)
+    faces = np.asarray(faces, np.int64)
+    tv = target_faces if target_verts is None else target_verts
+
+    def fits(v, f):
+        return len(f) <= target_faces and len(v) <= tv
+
+    if fits(verts, faces):
+        return verts, faces.astype(np.int32)
+    v0, f0 = _compact(verts, faces)
+    if fits(v0, f0):
+        return v0, f0.astype(np.int32)
+    diag = float(np.linalg.norm(verts.max(axis=0) - verts.min(axis=0)))
+    pitch = diag / 64.0
+    best_over = None  # coarsest clustering still over budget
+    lo = hi = None  # lo: pitch known over budget; hi: known empty/fits
+    for _ in range(max_iters):
+        v, f = _cluster_once(verts, faces, pitch)
+        if len(f):
+            v, f = _compact(v, f)
+        if len(f) and fits(v, f):
+            return v, f.astype(np.int32)
+        if len(f) == 0:
+            hi = pitch
+            break
+        best_over = (v, f)  # coarsest-so-far: fewest faces over budget
+        lo = pitch
+        pitch *= 1.4142135623730951  # sqrt(2): gentle coarsening
+    if hi is not None:
+        if lo is None:
+            # Even the first pitch emptied the mesh: an effectively-zero
+            # pitch reproduces the (over-budget) input — a valid bracket.
+            lo = hi * 1e-7
+            best_over = best_over or (v0, f0)
+        for _ in range(24):  # bisect into the (over-budget, empty) gap
+            mid = 0.5 * (lo + hi)
+            v, f = _cluster_once(verts, faces, mid)
+            if len(f) == 0:
+                hi = mid
+                continue
+            v, f = _compact(v, f)
+            if fits(v, f):
+                return v, f.astype(np.int32)
+            lo, best_over = mid, (v, f)  # non-empty but over budget
+    # No pitch fits: hard-trim the coarsest over-budget clustering to the
+    # largest-area faces; shrink until the vertex budget holds too.
+    v, f = best_over if best_over is not None else (v0, f0)
+    fv = v[f]
+    area2 = np.linalg.norm(
+        np.cross(fv[:, 1] - fv[:, 0], fv[:, 2] - fv[:, 0]), axis=1
+    )
+    order = np.argsort(-area2)
+    k = min(target_faces, len(f))
+    while k > 0:
+        vk, fk = _compact(v, f[np.sort(order[:k])])
+        if len(vk) <= tv:
+            return vk, fk.astype(np.int32)
+        k = int(k * 0.8)  # geometric shrink; terminates (1 face = 3 verts)
+    return v[:0], f[:0].astype(np.int32)

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 into its own shared library, loaded with ``ctypes`` (no PyTorch headers, so
 a build takes seconds). Libraries land in ``build/hocon_torch/`` beside the
-package, named by a hash of the source, the shared headers and the flags,
-so an edited source or header rebuilds and an unchanged one is reused.
+package, named by a hash of the source, the shared headers and the flags
+(a source's own link flags included), so an edited source or header
+rebuilds and an unchanged one is reused. ``csrc/jpeg.cu`` is the one source
+that is not a kernel: the nvJPEG decoder, linked with ``-lnvjpeg``.
 ``build()`` starts one ``nvcc`` per missing library, all at once, and waits
 for them together.
 """
@@ -23,6 +25,10 @@ from pathlib import Path
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "hocon_torch"
 KERNELS = ("raster_fwd", "raster_bwd", "sample_fwd", "sample_bwd")
+SOURCES = KERNELS + ("jpeg",)
+# Libraries a source links beyond the CUDA runtime; the toolkit's library
+# directory goes into the library's run path, so ctypes finds them there.
+LINK_FLAGS = {"jpeg": ("-lnvjpeg",)}
 # No fast-math: approximate exp / reciprocal break the silhouette parity,
 # whose error compounds through the product over faces. -Xptxas -v writes
 # each kernel's registers, shared memory and spills into the build log.
@@ -52,7 +58,7 @@ def lib_path(name: str) -> Path:
     digest = hashlib.sha1((SRC_DIR / f"{name}.cu").read_bytes())
     for header in sorted(SRC_DIR.glob("*.cuh")):
         digest.update(header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(NVCC_FLAGS + LINK_FLAGS.get(name, ())).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -62,7 +68,15 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def build(names=KERNELS) -> dict[str, float]:
+def _link_flags(name: str, nvcc: str) -> list:
+    flags = list(LINK_FLAGS.get(name, ()))
+    if flags:
+        libdir = Path(nvcc).resolve().parent.parent / "lib64"
+        flags += ["-Xlinker", f"-rpath,{libdir}"]
+    return flags
+
+
+def build(names=SOURCES) -> dict[str, float]:
     """Compile every missing library in parallel; seconds per compiled one."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = []
@@ -72,7 +86,9 @@ def build(names=KERNELS) -> dict[str, float]:
             continue
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         log = out.with_suffix(".log")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu")]
+        nvcc = _nvcc()
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cu"),
+               *_link_flags(name, nvcc)]
         with open(log, "w") as fh:
             proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)
         jobs.append((name, proc, tmp, out, log, time.perf_counter()))

@@ -5,7 +5,9 @@ run end to end on the CPU at 32 px: ``trainwarp`` trains 2 steps with
 eval and a snapshot, a second call auto-restores it and trains 2 more,
 ``evaluate --resume`` reproduces the trainer's last val MPJPE, ``predict``
 covers its split exactly once through a padded tail batch, and ``train``
-runs. Every flag whose code is not ported raises ``NotImplementedError``
+runs. On FPHAB and HO-3D trees (``test_torch_parsers``' fixtures):
+``trainwarp`` and ``evaluate`` run, and ``--check_data`` exits 0 on a clean
+tree and 1 on one with an anomaly. Every flag whose code is not ported raises ``NotImplementedError``
 naming its ROADMAP item, and ``main`` without ``device`` needs CUDA.
 """
 
@@ -19,6 +21,7 @@ import torch
 
 import hocon.cli.opts as ref_opts
 from hocon_torch.cli import evaluate, predict, train, trainwarp
+from test_torch_parsers import fphab_root, ho3d_root  # noqa: F401  (fixtures)
 
 torch.set_num_threads(1)
 
@@ -122,15 +125,88 @@ def test_train_cli_runs(tmp_path, monkeypatch):
         1, 2]
 
 
+FPHAB = ["--dataset", "fhbhands", "--image_size", "32", "--use_objects", "--no_bf16"]
+
+
+@pytest.fixture(scope="module")
+def fphab_run(fphab_root, tmp_path_factory):
+    """``trainwarp`` on the FPHAB tree (hand + decimated PLY object, 2 steps
+    with eval), then ``evaluate`` of its snapshot."""
+    cwd = os.getcwd()
+    os.chdir(tmp_path_factory.mktemp("fphab_cli"))
+    try:
+        flags = FPHAB + ["--data_root", fphab_root, "--batch_size", "4"]
+        state = trainwarp.main(flags + ["--fraction", "0.25", "--epochs", "1",
+                                        "--max_steps_per_epoch", "2", "--exp_id", "f"],
+                               device="cpu")
+        ckpt = os.path.abspath("checkpoints/f/ckpt")
+        metrics = evaluate.main(flags + ["--resume", ckpt], device="cpu")
+        records = [json.loads(s) for s in open("checkpoints/f/metrics.jsonl")]
+        return dict(state=state, metrics=metrics, records=records,
+                    ckpt=sorted(os.listdir(ckpt)))
+    finally:
+        os.chdir(cwd)
+
+
+def test_trainwarp_and_evaluate_run_on_fphab(fphab_run, fphab_root):
+    assert fphab_run["state"].step == 2 and fphab_run["ckpt"] == ["2"]
+    assert [r["step"] for r in fphab_run["records"]] == [1, 2]
+    for r in fphab_run["records"]:
+        assert all(np.isfinite(v) for v in r.values()), r
+        assert r["mask_area"] > 0
+    m = fphab_run["metrics"]
+    assert np.isfinite(m["mpjpe_mm"]) and np.isfinite(m["obj_verts_err_mm"])
+
+
+_CHECK_DATA = {
+    # name: (cli, dataset flags, the splits checked)
+    "trainwarp_fphab": ("trainwarp", ["--dataset", "fhbhands", "--use_objects"],
+                        ["train", "test"]),
+    "train_fphab_hand": ("train", ["--dataset", "fhbhands"], ["train", "test"]),
+    "evaluate_fphab": ("evaluate", ["--dataset", "fhbhands", "--use_objects"], ["test"]),
+    "evaluate_ho3d": ("evaluate", ["--dataset", "ho3dv2", "--val_split", "train",
+                                   "--use_objects"], ["train"]),
+}
+
+
+@pytest.mark.parametrize("case", list(_CHECK_DATA))
+def test_check_data_exits_zero_on_a_clean_tree(case, fphab_root, ho3d_root, tmp_path,
+                                               monkeypatch, capsys):
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("HOCON_CACHE_DIR", str(tmp_path / "cache"))
+    name, flags, splits = _CHECK_DATA[case]
+    root = ho3d_root if "ho3dv2" in flags else fphab_root
+    with pytest.raises(SystemExit) as exit_info:
+        CLIS[name].main(flags + ["--data_root", root, "--image_size", "32", "--check_data"],
+                        device="cpu")
+    assert exit_info.value.code == 0
+    verdicts = [ln for ln in capsys.readouterr().out.splitlines() if ln.endswith(" OK")]
+    assert verdicts == [f"[check_data:{s}] OK" for s in splits]
+
+
+def test_check_data_exits_one_on_an_anomaly(fphab_root, tmp_path, monkeypatch, capsys):
+    """A missing frame is reported, and the exit code says so."""
+    import shutil
+
+    monkeypatch.chdir(tmp_path)
+    root = str(tmp_path / "tree")
+    shutil.copytree(fphab_root, root)
+    os.remove(os.path.join(root, "Video_files", "Subject_2", "open_milk", "1", "color",
+                           "color_0000.jpeg"))
+    with pytest.raises(SystemExit) as exit_info:
+        evaluate.main(FPHAB + ["--data_root", root, "--check_data"], device="cpu")
+    assert exit_info.value.code == 1
+    out = capsys.readouterr().out
+    assert "image missing" in out and "ANOMALIES" in out
+
+
 _UNPORTED = {
     "workers": (["--workers", "2"], "item 11"),
-    "check_data": (["--check_data"], "item 11"),
     "torch_trunk": (["--torch_trunk", "trunk.pth"], "item 12"),
     "torch_ckpt": (["--torch_ckpt", "meshreg.pth"], "item 12"),
     "vis_freq": (["--vis_freq", "1"], "item 12"),
     "mano_left": (["--mano_side", "left"], "item 11"),
     "mano_pkl": (["--mano_assets", "mano"], "item 11"),
-    "fphab": (["--dataset", "fhbhands"], "item 11"),
 }
 
 

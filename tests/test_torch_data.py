@@ -12,6 +12,7 @@ cv2 rounds them in float32, so the two drift apart as the coordinates grow
 (~3e-6 at 64 px, ~2e-5 at 256 px on a random texture).
 """
 
+import os
 import threading
 import time
 
@@ -230,16 +231,23 @@ def test_hand_dataset_matches_reference(pose_dataset, case):
         pose_dataset.with_object = True
 
 
-def test_hand_dataset_refuses_oversized_meshes_and_missing_queries(pose_dataset):
+def test_hand_dataset_refuses_oversized_meshes_and_missing_queries(pose_dataset, tmp_path):
     cfg = HandDatasetConfig(image_size=32, max_obj_verts=4)
     with pytest.raises(ValueError, match="exceeds the configured buffers"):
         HandDataset(pose_dataset, cfg)[0]
     with pytest.raises(ValueError, match="cannot serve queries"):
         HandDataset(pose_dataset, cfg, required_queries=[TQ.BaseQueries.JOINTS3D, TQ.TransQueries.IMAGE])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        get_dataset("fphab", "train")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        get_dataset("ho3d", "test", use_objects=True)
+    # The FPHAB and HO-3D parsers build (on an empty tree here; on fixture
+    # trees against hocon's in test_torch_parsers), objects decimated to the
+    # face cap by default.
+    os.makedirs(tmp_path / "evaluation")
+    fphab = get_dataset("fphab", "train", str(tmp_path), device="cpu")
+    ho3d = get_dataset("ho3d", "test", str(tmp_path), use_objects=True, max_obj_faces=700,
+                       device="cpu")
+    assert type(fphab.pose_dataset).__name__ == "FPHAB" and len(fphab) == 0
+    assert type(ho3d.pose_dataset).__name__ == "HO3D" and len(ho3d) == 0
+    assert ho3d.pose_dataset.decimate_objects_to == 700 == ho3d.cfg.max_obj_verts
+    assert fphab.cfg.decode_device == "cpu"
     with pytest.raises(ValueError, match="unknown dataset"):
         get_dataset("mnist", "train")
 

@@ -215,10 +215,12 @@ def test_data_slice_matches_reference(mano_model, monkeypatch, tmp_path):
     ref_ds = ref_get_dataset("synthetic", "train", mano=mano_model, **kw)
     mano = synthetic_mano_model(0, device="cpu")
     ds = get_dataset("synthetic", "train", mano=mano, device="cpu", **kw)
+    # The reference's fields, plus the port's decode device: get_dataset's.
     assert ds.cfg == type(ds.cfg)(**{f: getattr(ref_ds.cfg, f) for f in ("image_size",
                                      "bbox_scale", "center_idx", "max_obj_verts",
                                      "max_obj_faces", "pair_mode", "clip_len", "train",
-                                     "uint8_images")}, augment=ds.cfg.augment)
+                                     "uint8_images")}, augment=ds.cfg.augment,
+                                  decode_device="cpu")
     batch = next(iter(BatchLoader(ds, 4, seed=0)))
     ref_batch = next(iter(RefBatchLoader(ref_ds, 4, seed=0)))
     _compare_batches(batch, ref_batch)
