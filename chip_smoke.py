@@ -76,7 +76,27 @@ Phases, each reported on its own line:
    step, every JPEG through nvJPEG (the CPU decoder fails the phase), finite
    terms and a checkpoint; one batch's host time; the HO-3D fit-vertex
    memmap's build time; ``evaluate --check_data`` exits 0 and ``evaluate``
-   of the FPHAB checkpoint gives a finite MPJPE on HO-3D.
+   of the FPHAB checkpoint gives a finite MPJPE on HO-3D;
+12. workers — DataLoader workers and MANO assets, in a temporary directory
+   under ``--out``: an FPHAB tree of 3 + 1 sequences of 64 frames (12 steps
+   of 16 pairs per epoch) and the HO-3D tree; the first batch of
+   ``WorkerEpochLoader`` with W workers (W from ``os.cpu_count()``,
+   every core but two) bit for bit ``BatchLoader(prefetch=0)``'s, while the
+   CPU decoder's batch differs, and the card's memory in use with the
+   decoding workers and without; ``trainwarp`` on FPHAB at full width with
+   ``--workers 0`` and ``--workers W`` in turns, two runs each (no eval),
+   K1 at C = 2, K2, K3 and K4 once per step in this process and every
+   nvJPEG decode in the workers; ``evaluate --workers W`` on HO-3D gives
+   ``--workers 0``'s metrics exactly; ``MANO_RIGHT.pkl`` in the official
+   pickle's layout (``tools/fixture_trees.write_mano_pkl``) read to CUDA
+   tensors for the right hand, the left hand mirrored from it and read
+   from a ``MANO_LEFT.pkl``; ``trainwarp --mano_side left`` from the pickle
+   at full width with finite terms and K1-K4 once per step.
+
+After the phases, and after a failed one too, the script stops every
+process it started (the workers' forkserver and multiprocessing's resource
+tracker; the workers stop with their CLI calls) and fails if any process
+under it is left.
 
 Kernel times are CUDA-event means over many launches, with the stream held
 while the host issues them (``cuda_ms_rotating``), so they are the card's
@@ -95,6 +115,7 @@ import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -1244,29 +1265,31 @@ def mano_clip(torch, mano, rng, n: int, trans) -> tuple:
     return pose, betas, tr, joints.cpu().numpy()
 
 
-def write_fphab_tree(torch, device, mano, root: str) -> None:
-    """3 train sequences and 1 test sequence of REAL_FRAMES 1920 x 1080
-    frames (nvJPEG, quality 90, 4:2:0) in ``FPHAB_ACTION``, with MANO fits,
-    the fits' joints as skeletons (world mm, through the inverse of
-    ``CAM_EXTR``), object poses beside the hand, and a dense PLY object."""
+def write_fphab_tree(torch, device, mano, root: str, frames: int | None = None) -> None:
+    """3 train sequences and 1 test sequence of ``frames`` (``REAL_FRAMES``
+    if None) 1920 x 1080 frames (nvJPEG, quality 90, 4:2:0) in
+    ``FPHAB_ACTION``, with MANO fits, the fits' joints as skeletons (world
+    mm, through the inverse of ``CAM_EXTR``), object poses beside the hand,
+    and a dense PLY object."""
     from hocon_torch.data import fphab as TF
     from hocon_torch.data.images import encode_jpeg
     from tools import fixture_trees as FT
 
+    frames = REAL_FRAMES if frames is None else frames
     rng = np.random.default_rng(11)
     world_from_cam = np.linalg.inv(TF.CAM_EXTR.astype(np.float64))
     for si, subject in enumerate(FPHAB_TRAIN + (FPHAB_TEST,)):
-        pose, betas, trans, joints = mano_clip(torch, mano, rng, REAL_FRAMES, [0.0, 0.03, 0.5])
+        pose, betas, trans, joints = mano_clip(torch, mano, rng, frames, [0.0, 0.03, 0.5])
         world = (joints * 1000.0) @ world_from_cam[:3, :3].T + world_from_cam[:3, 3]
         skel = np.empty_like(world)
         skel[:, list(TF.REORDER_IDX)] = world  # the standard order back to FPHAB's
-        obj_cam = np.tile(np.eye(4), (REAL_FRAMES, 1, 1))
+        obj_cam = np.tile(np.eye(4), (frames, 1, 1))
         obj_cam[:, :3, 3] = joints[:, 0] * 1000.0 + [60.0, -20.0, 30.0]
-        frames = hand_frames(torch, device, joints, TF.CAM_INTR, FPHAB_HW, seed=si)
+        images = hand_frames(torch, device, joints, TF.CAM_INTR, FPHAB_HW, seed=si)
         fits = {i: {"pose": pose[i], "shape": betas[i], "trans": trans[i]}
-                for i in range(REAL_FRAMES)}
+                for i in range(frames)}
         FT.write_fphab_sequence(root, subject, FPHAB_ACTION, "1", skel,
-                                [encode_jpeg(f, 90, "420") for f in frames],
+                                [encode_jpeg(f, 90, "420") for f in images],
                                 world_from_cam @ obj_cam, fits)
     verts, faces = FT.sphere_mesh(DENSE_POINTS, 40.0, seed=3)  # mm
     FT.write_ply(os.path.join(root, "Object_models", "milk_model", "milk_model.ply"),
@@ -1507,6 +1530,352 @@ def phase_real_data(torch, device, smi: str, out_dir: str) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# Phase 12: the DataLoader workers on FPHAB and HO-3D trees, and MANO assets
+# from a pickle, with the left hand.
+WORKER_FRAMES = 64  # frames per FPHAB sequence: 3 x 64 = 192 pairs = 12 steps of 16
+WORKER_STEPS = 12
+LEFT_FLAGS = {"dataset": "synthetic", "image_size": RES, "batch_size": PAIRS, "use_objects": True,
+              "synth_videos": 2, "synth_frames": 16, "fraction": 0.25, "epochs": 1, "lr": 5e-4,
+              "mano_side": "left", "exp_id": "left"}
+LEFT_STEPS = 2  # 2 videos x 16 frames = 32 pairs = 2 steps of 16
+
+
+def worker_count() -> tuple:
+    """(the host's cores, the workers to use): every core but two, one for
+    the process that drives the card and one for the rest of the host."""
+    cores = os.cpu_count() or 1
+    return cores, max(1, cores - 2)
+
+
+def with_hbm_peak(torch, fn):
+    """``fn()`` while a thread reads the card's memory in use by every
+    process (``torch.cuda.mem_get_info``) each 50 ms; returns (fn's result,
+    the most in use, in bytes)."""
+    import threading
+
+    stop, peak = threading.Event(), [0]
+
+    def poll():
+        while not stop.is_set():
+            free, total = torch.cuda.mem_get_info()
+            peak[0] = max(peak[0], total - free)
+            stop.wait(0.05)
+
+    thread = threading.Thread(target=poll, daemon=True)
+    thread.start()
+    try:
+        result = fn()
+    finally:
+        stop.set()
+        thread.join()
+    return result, peak[0]
+
+
+def leaves(batch: dict, prefix: str = "") -> dict:
+    """A nested batch as {"ref/image": array, ...}."""
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, dict):
+            out.update(leaves(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def batches_equal(a: dict, b: dict) -> bool:
+    la, lb = leaves(a), leaves(b)
+    return la.keys() == lb.keys() and all(
+        la[k].dtype == lb[k].dtype and la[k].shape == lb[k].shape
+        and la[k].tobytes() == lb[k].tobytes() for k in la)
+
+
+def counters_zeroed(torch) -> None:
+    from hocon_torch.data import images
+    from hocon_torch.render import raster_cuda as RC
+    from hocon_torch.render import sample_cuda as SC
+
+    torch.cuda.synchronize()
+    RC.raster_fwd.launches = RC.raster_bwd.launches = 0
+    SC.sample_fwd.launches = SC.sample_bwd.launches = 0
+    RC.raster_fwd.launches_by_attrs = {}
+    images.ycc_to_rgb_cuda.launches = 0
+
+
+def step_launches() -> tuple:
+    """(K1 at C = 2, K2, K3 and K4 launches, K1's launches by C)."""
+    from hocon_torch.render import raster_cuda as RC
+    from hocon_torch.render import sample_cuda as SC
+
+    by_c = dict(RC.raster_fwd.launches_by_attrs)
+    return ({"raster_fwd": by_c.get(2, 0), "raster_bwd": RC.raster_bwd.launches,
+             "sample_fwd": SC.sample_fwd.launches, "sample_bwd": SC.sample_bwd.launches}, by_c)
+
+
+def train_records(run: str, steps: int, what: str) -> list:
+    """The run's logged steps, which must be ``steps`` finite ones with a
+    non-empty mask."""
+    with open(os.path.join(run, "metrics.jsonl")) as fh:
+        records = [json.loads(line) for line in fh]
+    if ([r["step"] for r in records] != list(range(1, steps + 1))
+            or not all(math.isfinite(v) for r in records for v in r.values())
+            or min(r["mask_area"] for r in records) <= 0):
+        fail(f"workers: {what} logged {records}, want {steps} finite steps")
+    return records
+
+
+def fphab_rate_run(torch, device, flags: dict, workers: int, exp_id: str, smi: str) -> dict:
+    """``trainwarp`` on the FPHAB tree with ``--workers workers``: K1 at
+    C = 2, K2, K3 and K4 once per step in this process, and every JPEG
+    decoded here (``--workers 0``) or none (in the workers)."""
+    from hocon_torch.cli import trainwarp
+    from hocon_torch.data import images
+
+    counters_zeroed(torch)
+    t0 = time.perf_counter()
+    (_, text), peak = with_hbm_peak(torch, lambda: run_cli(
+        trainwarp.main, cli_argv({**flags, "workers": workers, "exp_id": exp_id}), device))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, by_c = step_launches()
+    decodes = images.ycc_to_rgb_cuda.launches
+    if launches != {k: WORKER_STEPS for k in launches} or set(by_c) != {2}:
+        fail(f"workers: --workers {workers}: launches {launches} (K1 by C {by_c}), want K1 at "
+             f"C = 2, K2, K3 and K4 once per train step ({WORKER_STEPS}) in this process")
+    want_decodes = 0 if workers else WORKER_STEPS * PAIRS * 2
+    if decodes != want_decodes:
+        fail(f"workers: --workers {workers}: {decodes} nvJPEG decodes in this process, "
+             f"want {want_decodes}")
+    run = os.path.join("checkpoints", exp_id)
+    records = train_records(run, WORKER_STEPS, f"trainwarp --workers {workers} on FPHAB")
+    with open(os.path.join(run, "epochs.json")) as fh:
+        rate = [e["steps_per_sec"] for e in json.load(fh) if e["split"] == "train"][0]
+    log(f"workers: trainwarp --workers {workers} on FPHAB, {WORKER_STEPS} steps of {PAIRS} "
+        f"pairs at {RES}^2: steps_per_sec {rate:.3f} (past 2 warm-up steps), the call "
+        f"{wall:.1f} s, set-up {cli_setup_s(text):.3f} s; launches {launches}; {decodes} nvJPEG "
+        f"decodes in this process; most HBM in use {peak / 2**30:.2f} GiB; card {smi}")
+    first = {k: v for k, v in records[0].items() if k != "time"}
+    return {"rate": rate, "peak": peak, "first": first}
+
+
+def check_mano_assets(torch, device, work: str) -> str:
+    """MANO_RIGHT.pkl from the synthetic arrays in the official pickle's
+    layout (``tools/fixture_trees.write_mano_pkl``: chumpy objects, a sparse
+    joint regressor), read by ``load_mano_or_synthetic`` for the right hand,
+    for the left from the right file (mirrored), and for the left from a
+    MANO_LEFT.pkl (written with the published left asset's sign in x of
+    shapedirs, which the loader fixes). Returns the right-only directory."""
+    from hocon_torch.cli import opts
+    from hocon_torch.geometry.mano import mirror_mano_model, synthetic_mano_arrays
+    from tools.fixture_trees import write_mano_pkl
+
+    arrays = synthetic_mano_arrays(0)
+    right_dir, both_dir = os.path.join(work, "mano_right"), os.path.join(work, "mano_both")
+    write_mano_pkl(os.path.join(right_dir, "MANO_RIGHT.pkl"), arrays)
+    write_mano_pkl(os.path.join(both_dir, "MANO_RIGHT.pkl"), arrays)
+    fields = ("v_template", "shapedirs", "posedirs", "joint_regressor", "skin_weights",
+              "hands_components", "hands_mean", "faces")
+    models = {}
+    for name, where, side in (("right", right_dir, "right"), ("left mirrored", right_dir, "left")):
+        models[name] = opts.load_mano_or_synthetic(where, side, device=device)
+    mirror = mirror_mano_model(models["right"])
+    left_arrays = {k: getattr(mirror, k).cpu().numpy() for k in fields}
+    left_arrays["shapedirs"] = arrays["shapedirs"]  # the left asset's x sign, as published
+    write_mano_pkl(os.path.join(both_dir, "MANO_LEFT.pkl"), left_arrays)
+    models["left from MANO_LEFT.pkl"] = opts.load_mano_or_synthetic(both_dir, "left",
+                                                                    device=device)
+    for name, model in models.items():
+        if not all(getattr(model, k).is_cuda for k in fields):
+            fail(f"workers: the MANO model ({name}) is not on the card")
+    if not all(torch.equal(getattr(models["right"], k).cpu(), torch.from_numpy(
+            np.asarray(arrays[k])).to(getattr(models["right"], k).dtype)) for k in fields):
+        fail("workers: MANO_RIGHT.pkl did not load to the arrays it was written from")
+    for name in ("left mirrored", "left from MANO_LEFT.pkl"):
+        model = models[name]
+        if model.side != "left" or not all(torch.equal(getattr(model, k), getattr(mirror, k))
+                                           for k in fields):
+            fail(f"workers: the left hand ({name}) is not the mirrored right hand")
+    log("workers: load_mano_or_synthetic on the card: MANO_RIGHT.pkl (chumpy objects, a "
+        "scipy.sparse.csc joint regressor, uint32 faces) loads to its arrays; the left hand "
+        "mirrored from it and the one read from MANO_LEFT.pkl (shapedirs' x sign fixed) are "
+        "the mirror bit for bit; every tensor on the card")
+    return right_dir
+
+
+def phase_workers(torch, device, smi: str, out_dir: str) -> None:
+    """Phase 12: DataLoader workers for ``trainwarp`` on FPHAB and
+    ``evaluate`` on HO-3D, and MANO assets from a pickle with the left hand
+    (see the module note)."""
+    import shutil
+    import tempfile
+
+    from hocon_torch.cli import evaluate, trainwarp
+    from hocon_torch.data.factory import get_dataset
+    from hocon_torch.data.pipeline import BatchLoader, WorkerEpochLoader
+    from hocon_torch.geometry.mano import synthetic_mano_model
+
+    t_phase = time.perf_counter()
+    cores, workers = worker_count()
+    here, cache_env = os.getcwd(), os.environ.get("HOCON_CACHE_DIR")
+    work = tempfile.mkdtemp(prefix="workers-", dir=out_dir)
+    os.environ["HOCON_CACHE_DIR"] = os.path.join(work, "cache")
+    os.chdir(work)
+    try:
+        mano = synthetic_mano_model(0, device=device)
+        fphab, ho3d, assets = (os.path.join(work, d) for d in ("fphab", "ho3d", "mano"))
+        os.makedirs(assets)
+        t0 = time.perf_counter()
+        write_fphab_tree(torch, device, mano, fphab, WORKER_FRAMES)
+        write_ho3d_tree(torch, device, mano, ho3d)
+        log(f"workers: {cores} cores, {workers} workers; wrote FPHAB ({len(FPHAB_TRAIN)} + 1 "
+            f"sequences of {WORKER_FRAMES} {FPHAB_HW[1]}x{FPHAB_HW[0]} JPEGs) and HO-3D trees "
+            f"in {time.perf_counter() - t0:.1f} s; card {smi}")
+
+        # The first batch: in this process, then from the workers (which
+        # decode on the card), then with the CPU decoder (PIL) for contrast.
+        ds = get_dataset("fhbhands", "train", fphab, RES, fraction=0.25, use_objects=True,
+                         pair_mode=True, mano=mano, device=device)
+        t0 = time.perf_counter()
+        want = next(BatchLoader(ds, PAIRS, seed=0, prefetch=0).epoch(0))
+        host_s = time.perf_counter() - t0
+        used0 = torch.cuda.mem_get_info()
+        with WorkerEpochLoader(ds, PAIRS, seed=0, worker_count=workers) as loader:
+            t0 = time.perf_counter()
+            got = next(iter(loader.epoch(0)))
+            first_s = time.perf_counter() - t0
+            time.sleep(1.0)  # the other workers' first batches
+            used1 = torch.cuda.mem_get_info()
+        ds.cfg.decode_device = torch.device("cpu")
+        on_cpu = next(BatchLoader(ds, PAIRS, seed=0, prefetch=0).epoch(0))
+        if not batches_equal(got, want):
+            fail("workers: the first worker batch is not BatchLoader(prefetch=0)'s, bit for bit")
+        want_leaves, cpu_leaves = leaves(want), leaves(on_cpu)
+        img = [k for k in want_leaves if k.endswith("image")]
+        differ = sum(int((cpu_leaves[k] != want_leaves[k]).sum()) for k in img)
+        total = sum(want_leaves[k].size for k in img)
+        if differ == 0:
+            fail("workers: the CPU decoder gives the card's bits: the equality shows nothing")
+        per_worker = ((used0[0] - used1[0]) / workers) / 2**30
+        log(f"workers: the first batch of {PAIRS} pairs from {workers} workers "
+            f"(decoding on the card) equals BatchLoader(prefetch=0)'s bit for bit; with the CPU "
+            f"decoder (PIL) {differ} of {total} image values differ; in this process the batch "
+            f"took {host_s:.3f} s, from the workers {first_s:.3f} s (the workers' start and the "
+            f"batch); HBM in use {(used0[1] - used0[0]) / 2**30:.2f} GiB before the workers, "
+            f"{(used1[1] - used1[0]) / 2**30:.2f} GiB with them: {per_worker:.3f} GiB per "
+            f"decoding worker; card {smi}")
+
+        flags = {"dataset": "fhbhands", "data_root": fphab, "image_size": RES,
+                 "batch_size": PAIRS, "use_objects": True, "mano_assets": assets,
+                 "fraction": 0.25, "epochs": 1, "eval_freq": 2, "lr": 5e-4}
+        runs = {0: [], workers: []}
+        for rnd in range(2):
+            for w in (0, workers):
+                runs[w].append(fphab_rate_run(torch, device, flags, w, f"w{w}_{rnd}", smi))
+        same = all(r["first"] == runs[0][0]["first"] for r in runs[0] + runs[workers])
+        rates = {w: [r["rate"] for r in rs] for w, rs in runs.items()}
+        peaks = {w: max(r["peak"] for r in rs) / 2**30 for w, rs in runs.items()}
+        log(f"workers: trainwarp on FPHAB, steps_per_sec --workers 0 {rates[0][0]:.3f} / "
+            f"{rates[0][1]:.3f}, --workers {workers} {rates[workers][0]:.3f} / "
+            f"{rates[workers][1]:.3f} (in turns: 0, {workers}, 0, {workers}); most HBM in use "
+            f"{peaks[0]:.2f} GiB against {peaks[workers]:.2f} GiB; the first step's logged "
+            f"terms equal in all four runs: {same}; card {smi}")
+
+        ckpt = os.path.join(work, "checkpoints", f"w{workers}_0", "ckpt")
+        ho3d_flags = {"dataset": "ho3dv2", "data_root": ho3d, "val_split": "train",
+                      "image_size": RES, "batch_size": PAIRS, "use_objects": True,
+                      "mano_assets": assets, "resume": ckpt}
+        evals = {}
+        for w in (0, workers):
+            t0 = time.perf_counter()
+            (metrics, _), peak = with_hbm_peak(torch, lambda: run_cli(
+                evaluate.main, cli_argv({**ho3d_flags, "workers": w}), device))
+            evals[w] = (metrics, time.perf_counter() - t0, peak / 2**30)
+        keys = sorted(set(evals[0][0]) - {"steps_per_sec"})
+        if any(evals[workers][0][k] != evals[0][0][k] for k in keys):
+            fail(f"workers: evaluate on HO-3D with --workers {workers} gave {evals[workers][0]}, "
+                 f"with --workers 0 {evals[0][0]}")
+        log(f"workers: evaluate on HO-3D (PNG frames): --workers {workers} gives --workers 0's "
+            f"metrics exactly (MPJPE {evals[0][0]['mpjpe_mm']:.4f} mm, object vertex error "
+            f"{evals[0][0]['obj_verts_err_mm']:.4f} mm, AUC {evals[0][0]['auc']:.4f}); the "
+            f"calls {evals[0][1]:.1f} / {evals[workers][1]:.1f} s, most HBM in use "
+            f"{evals[0][2]:.2f} / {evals[workers][2]:.2f} GiB (workers reading PNGs open no CUDA "
+            f"context); card {smi}")
+
+        right_dir = check_mano_assets(torch, device, work)
+        counters_zeroed(torch)
+        t0 = time.perf_counter()
+        state, _ = run_cli(trainwarp.main, cli_argv({**LEFT_FLAGS, "mano_assets": right_dir}),
+                           device)
+        torch.cuda.synchronize()
+        launches, by_c = step_launches()
+        if state.step != LEFT_STEPS or launches != {k: LEFT_STEPS for k in launches}:
+            fail(f"workers: trainwarp --mano_side left: step {state.step}, launches {launches}, "
+                 f"want K1 at C = 2, K2, K3 and K4 once per step ({LEFT_STEPS})")
+        records = train_records(os.path.join("checkpoints", "left"), LEFT_STEPS,
+                                "trainwarp --mano_side left")
+        log(f"workers: trainwarp --mano_side left (the right pickle mirrored) on synthetic data, "
+            f"{LEFT_STEPS} steps of {PAIRS} pairs at {RES}^2 in {time.perf_counter() - t0:.1f} s: "
+            f"every term finite, loss {records[0]['loss_total']:.4f} -> "
+            f"{records[-1]['loss_total']:.4f}, mask area {records[-1]['mask_area']:.1f}; "
+            f"launches {launches}, K1 by C {by_c}; card {smi}")
+        log(f"workers: the phase took {time.perf_counter() - t_phase:.1f} s; card {smi}")
+    finally:
+        if cache_env is None:
+            os.environ.pop("HOCON_CACHE_DIR", None)
+        else:
+            os.environ["HOCON_CACHE_DIR"] = cache_env
+        os.chdir(here)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def descendants(pid: int) -> dict:
+    """The processes under ``pid`` (children, their children, ...), from
+    ``/proc``: pid -> (name, state)."""
+    children = {}
+    for d in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{d}/stat") as fh:
+                stat = fh.read()
+        except OSError:
+            continue
+        rest = stat[stat.rindex(")") + 2:].split()
+        children.setdefault(int(rest[1]), []).append(
+            (int(d), stat[stat.index("(") + 1:stat.rindex(")")], rest[0]))
+    found, todo = {}, [pid]
+    while todo:
+        for child, name, state in children.get(todo.pop(), []):
+            found[child] = (name, state)
+            todo.append(child)
+    return found
+
+
+def stop_processes() -> None:
+    """Stop every process this script started, and fail if one is left:
+    the loaders' workers stop with their CLI calls, the forkserver and the
+    resource tracker here (``stop_worker_server``). Processes seen under
+    this one before that must be gone within 10 s, and none may be left."""
+    from hocon_torch.data.pipeline import stop_worker_server
+
+    started = descendants(os.getpid())
+    stop_worker_server()
+    deadline = time.monotonic() + 10.0
+    while True:
+        left = {pid: what for pid, what in started.items() if os.path.exists(f"/proc/{pid}")}
+        left.update(descendants(os.getpid()))
+        if not left or time.monotonic() > deadline:
+            break
+        time.sleep(0.1)
+    for pid in left:
+        try:
+            os.kill(pid, signal.SIGKILL)
+            os.waitpid(pid, os.WNOHANG)
+        except (ProcessLookupError, ChildProcessError):
+            pass
+    log(f"processes: {len(started)} under this one before the stop "
+        f"({sorted(name for name, _ in started.values())}), {len(left)} left after it")
+    if left:
+        fail(f"processes left running after the stop (killed now): {left}")
+
+
 def main() -> None:
     import torch
 
@@ -1526,8 +1895,21 @@ def main() -> None:
                     help="directory for the ptxas report and the profiler table")
     out_dir = os.path.abspath(ap.parse_args().out)
     os.makedirs(out_dir, exist_ok=True)
-    device = "cuda"
 
+    try:
+        kernels = run_phases(torch, out_dir)
+    finally:
+        stop_processes()
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def run_phases(torch, out_dir: str) -> list:
+    """Every phase; returns the kernel table."""
+    t_start = time.perf_counter()
+    device = "cuda"
     smi = phase_device(torch)
     phase_build(out_dir)
     k1c3, k1, k2, k3, k4 = {}, {}, {}, {}, {}
@@ -1545,16 +1927,14 @@ def main() -> None:
     cli = {}
     phase_cli(torch, device, smi, out_dir, cli)
     phase_real_data(torch, device, smi, out_dir)
+    phase_workers(torch, device, smi, out_dir)
     for kern, name in ((k1, "raster_fwd"), (k1c3, "raster_fwd C=3"), (k2, "raster_bwd"),
                        (k3, "sample_fwd"), (k4, "sample_bwd")):
         kern["launches"] = cli[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: kern[k] for k in keys}
-                                  for kern in (k1, k1c3, k2, k3, k4)]}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    log(f"phases: {time.perf_counter() - t_start:.1f} s in all; card {smi}")
+    return [{k: kern[k] for k in keys} for kern in (k1, k1c3, k2, k3, k4)]
 
 
 if __name__ == "__main__":

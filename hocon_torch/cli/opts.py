@@ -35,8 +35,8 @@ def add_exp_opts(p: argparse.ArgumentParser):
     g.add_argument("--seed", type=int, default=0)
     g.add_argument("--max_steps_per_epoch", type=int, default=0)
     g.add_argument("--workers", type=int, default=0,
-                   help="worker processes for data loading (0 = in-process; "
-                        "workers are not ported yet)")
+                   help="worker processes for train and eval data loading "
+                        "(0 = in-process)")
     g.add_argument("--prefetch", type=int, default=2,
                    help="batches assembled ahead by a background thread "
                         "when --workers 0 (overlaps host data prep with "
@@ -84,10 +84,10 @@ def add_net_opts(p: argparse.ArgumentParser):
                    help="skip head entries missing from --torch_ckpt "
                         "instead of raising (e.g. hand-only checkpoints)")
     g.add_argument("--mano_assets", default="assets/mano",
-                   help="dir with MANO_RIGHT.pkl (the synthetic model if "
-                        "absent; loading a .pkl is not ported yet)")
+                   help="dir with MANO_RIGHT.pkl (synthetic model if absent)")
     g.add_argument("--mano_side", default="right", choices=["right", "left"],
-                   help="hand side (left is not ported yet)")
+                   help="hand side (left loads MANO_LEFT.pkl, else mirrors "
+                        "the right model)")
 
 
 def add_data_opts(p: argparse.ArgumentParser):
@@ -149,7 +149,6 @@ def add_warp_opts(p: argparse.ArgumentParser):
 def check_unported(args) -> None:
     """Raise ``NotImplementedError`` for a flag whose code is not ported."""
     unported = (
-        (getattr(args, "workers", 0) > 0, "--workers > 0 (the DataLoader workers)", 11),
         (getattr(args, "torch_trunk", ""), "--torch_trunk (the torchvision importer)", 12),
         (getattr(args, "torch_ckpt", ""), "--torch_ckpt (the reference checkpoint importer)", 12),
         (getattr(args, "vis_freq", 0) > 0, "--vis_freq > 0 (visualisation)", 12),
@@ -162,25 +161,28 @@ def check_unported(args) -> None:
 
 
 def load_mano_or_synthetic(assets_dir: str, side: str = "right", device=None):
-    """The synthetic stand-in MANO model on ``device``.
+    """User-supplied MANO assets on ``device``, else the synthetic stand-in.
 
-    Loading ``MANO_RIGHT.pkl`` / ``MANO_LEFT.pkl`` and mirroring the right
-    model for ``side="left"`` (``load_mano_model``, ``mirror_mano_model``)
-    are not ported yet: where a ``.pkl`` is present, or for the left hand,
-    this raises instead of quietly using the synthetic model.
+    ``side="left"`` loads ``MANO_LEFT.pkl`` when present, else mirrors the
+    right model (``mirror_mano_model``): the right ``.pkl`` if present,
+    else the synthetic one.
     """
-    from hocon_torch.geometry.mano import synthetic_mano_model
+    from hocon_torch.geometry.mano import (
+        load_mano_model,
+        mirror_mano_model,
+        synthetic_mano_model,
+    )
 
     fname = "MANO_LEFT.pkl" if side == "left" else "MANO_RIGHT.pkl"
     path = os.path.join(assets_dir, fname)
-    if side == "left" or os.path.exists(path):
-        raise NotImplementedError(
-            f"MANO side {side!r} with assets in {assets_dir!r}: load_mano_model and "
-            "mirror_mano_model are not ported to hocon_torch yet (ROADMAP queue 1, "
-            "item 11)"
-        )
+    if os.path.exists(path):
+        return load_mano_model(path, side=side, device=device)
+    right_path = os.path.join(assets_dir, "MANO_RIGHT.pkl")
+    if side == "left" and os.path.exists(right_path):
+        return mirror_mano_model(load_mano_model(right_path, side="right", device=device))
     print(
         f"[hocon] MANO assets not found at {path}; using the synthetic "
         "stand-in model (tests/benchmarks only — download MANO for real runs)"
     )
-    return synthetic_mano_model(0, device=device)
+    model = synthetic_mano_model(0, device=device)
+    return mirror_mano_model(model) if side == "left" else model

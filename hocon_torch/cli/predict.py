@@ -42,9 +42,10 @@ def main(argv=None, device: str | torch.device | None = None):
     loader, state, eval_step = load_for_eval(args, dev)
 
     collected: dict[str, list] = {}
-    for preds in predictions(loader, state, eval_step):
-        for k, v in preds.items():
-            collected.setdefault(k, []).append(v)
+    with loader:
+        for preds in predictions(loader, state, eval_step):
+            for k, v in preds.items():
+                collected.setdefault(k, []).append(v)
     os.makedirs(args.out, exist_ok=True)
     out_path = os.path.join(args.out, "predictions.npz")
     np.savez_compressed(

@@ -23,7 +23,7 @@ import torch
 from hocon_torch.cli import opts
 from hocon_torch.data.check import check_dataset
 from hocon_torch.data.factory import get_dataset
-from hocon_torch.data.pipeline import BatchLoader
+from hocon_torch.data.pipeline import BatchLoader, WorkerEpochLoader, WorkerEvalLoader
 from hocon_torch.device import resolve_device
 from hocon_torch.exp.args import save_args
 from hocon_torch.models.hocnet import HOCNet
@@ -122,11 +122,16 @@ def setup_common(args, device: torch.device):
         n_bad = check_dataset(train_ds, args.split, max_seqs=args.check_data_seqs)
         n_bad += check_dataset(val_ds, args.val_split, max_seqs=args.check_data_seqs)
         raise SystemExit(1 if n_bad else 0)
-    train_loader = BatchLoader(train_ds, args.batch_size, seed=args.seed,
-                               prefetch=args.prefetch)
+    if args.workers > 0:
+        train_loader = WorkerEpochLoader(train_ds, args.batch_size, seed=args.seed,
+                                         worker_count=args.workers)
+    else:
+        train_loader = BatchLoader(train_ds, args.batch_size, seed=args.seed,
+                                   prefetch=args.prefetch)
     # drop_last=False: validation scores every sample exactly once; the
-    # tail's padding rows carry _valid = 0.
-    val_loader = BatchLoader(val_ds, args.batch_size, shuffle=False, drop_last=False)
+    # tail's padding rows carry _valid = 0. With --workers > 0 the samples
+    # are assembled in worker processes, into BatchLoader's exact batches.
+    val_loader = WorkerEvalLoader(val_ds, args.batch_size, worker_count=args.workers)
     return mano, run_dir, writer, train_loader, val_loader
 
 
@@ -159,31 +164,34 @@ def fit(args, state, train_step, eval_step, run_dir, writer, train_loader, val_l
         ckpt, device, train_line) -> object:
     """The epoch loop: train, eval every ``--eval_freq`` epochs, snapshot
     every ``--snapshot_freq``; ``train_line(metrics)`` formats the train
-    summary. ``--profile`` traces epoch 0 into ``<run_dir>/trace``."""
+    summary. ``--profile`` traces epoch 0 into ``<run_dir>/trace``. The
+    loaders are closed when it returns or raises."""
     max_steps = args.max_steps_per_epoch or None
-    for epoch in range(args.epochs):
-        traced = args.profile and epoch == 0
-        with _profiler(device) if traced else contextlib.nullcontext() as prof:
-            state, train_metrics = epoch_pass(
-                train_loader, state, train_step, train=True, epoch=epoch,
-                device=device, writer=writer, max_steps=max_steps,
-            )
-            if traced and device.type == "cuda":
-                torch.cuda.synchronize(device)
-        if traced:
-            os.makedirs(os.path.join(run_dir, "trace"), exist_ok=True)
-            prof.export_chrome_trace(os.path.join(run_dir, "trace", "epoch0.json"))
-        print(f"[epoch {epoch}] train {train_line(train_metrics)} "
-              f"({train_metrics['steps_per_sec']:.2f} steps/s)")
-        if (epoch + 1) % args.eval_freq == 0:
-            _, val_metrics = epoch_pass(
-                val_loader, state, eval_step, train=False, epoch=epoch,
-                device=device, writer=writer, max_steps=max_steps,
-            )
-            print(f"[epoch {epoch}] val MPJPE={val_metrics['mpjpe_mm']:.2f}mm "
-                  f"AUC={val_metrics['auc']:.3f}")
-        if (epoch + 1) % args.snapshot_freq == 0:
-            ckpt.save(state.step, state)
+    # Worker processes start with a loader's first epoch and stop here.
+    with contextlib.closing(train_loader), contextlib.closing(val_loader):
+        for epoch in range(args.epochs):
+            traced = args.profile and epoch == 0
+            with _profiler(device) if traced else contextlib.nullcontext() as prof:
+                state, train_metrics = epoch_pass(
+                    train_loader, state, train_step, train=True, epoch=epoch,
+                    device=device, writer=writer, max_steps=max_steps,
+                )
+                if traced and device.type == "cuda":
+                    torch.cuda.synchronize(device)
+            if traced:
+                os.makedirs(os.path.join(run_dir, "trace"), exist_ok=True)
+                prof.export_chrome_trace(os.path.join(run_dir, "trace", "epoch0.json"))
+            print(f"[epoch {epoch}] train {train_line(train_metrics)} "
+                  f"({train_metrics['steps_per_sec']:.2f} steps/s)")
+            if (epoch + 1) % args.eval_freq == 0:
+                _, val_metrics = epoch_pass(
+                    val_loader, state, eval_step, train=False, epoch=epoch,
+                    device=device, writer=writer, max_steps=max_steps,
+                )
+                print(f"[epoch {epoch}] val MPJPE={val_metrics['mpjpe_mm']:.2f}mm "
+                      f"AUC={val_metrics['auc']:.3f}")
+            if (epoch + 1) % args.snapshot_freq == 0:
+                ckpt.save(state.step, state)
     ckpt.wait()
     writer.plot_curves()
     writer.close()

@@ -323,6 +323,12 @@ class FPHAB:
         self._fit_verts = fit_vertices(self.mano, pose, betas, trans, chunk)
         self._fit_row[rows] = np.arange(len(rows))
 
+    def __getstate__(self):
+        """Pickle without the MANO model, whose tensors may live on the card:
+        the unpickled copy serves ``get_sample`` and ``sample_pair``, which
+        are host code."""
+        return {**self.__dict__, "mano": None}
+
     def available_queries(self) -> set:
         qs = {BaseQueries.IMAGE, BaseQueries.JOINTS2D, BaseQueries.JOINTS3D,
               BaseQueries.CAMINTR, BaseQueries.SIDE, BaseQueries.CENTER3D}

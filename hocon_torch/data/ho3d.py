@@ -260,8 +260,12 @@ class HO3D:
 
     def __getstate__(self):
         """Pickle without the fit-vertex memmap (a worker would otherwise
-        receive a dense copy); the unpickled copy reopens the file."""
+        receive a dense copy; the unpickled copy reopens the file) and
+        without the MANO model, whose tensors may live on the card: the
+        unpickled copy serves ``get_sample`` and ``sample_pair``, which are
+        host code."""
         d = self.__dict__.copy()
+        d["mano"] = None
         if isinstance(d.get("_fit_verts"), np.memmap):
             d["_fit_verts"] = None
         return d
@@ -291,7 +295,7 @@ class HO3D:
         entry = self.entries[i]
         has_fit = bool(self._has_fit[i])
         verts_cam = None
-        if self.mano is not None and self._fit_row[i] >= 0:
+        if self._fit_row[i] >= 0:  # fitted frames with a MANO model
             # Materialize the 9 KB row out of the disk-backed memmap.
             verts_cam = np.array(self._fit_verts[self._fit_row[i]])
         out = {

@@ -237,6 +237,12 @@ class SyntheticHandDataset:
         return (np.concatenate([verts, obj_v], axis=1),
                 np.concatenate([faces, self.obj_faces + verts.shape[1]], axis=0))
 
+    def __getstate__(self):
+        """Pickle without the MANO model, whose tensors may live on the card:
+        the unpickled copy serves ``get_sample`` and ``sample_pair``, which
+        are host code."""
+        return {**self.__dict__, "mano": None}
+
     def available_queries(self) -> set:
         qs = {BaseQueries.IMAGE, BaseQueries.JOINTS2D, BaseQueries.JOINTS3D,
               BaseQueries.VERTS3D, BaseQueries.CAMINTR, BaseQueries.SIDE,

@@ -6,11 +6,20 @@ fixed parent chain, linear blend skinning, fingertip joints and joint
 reorder. ``synthetic_mano_model`` rebuilds the reference's licence-free
 stand-in from the same seeded numpy and scipy calls, so both packages hold
 identical arrays.
+
+Assets: ``load_mano_model`` reads the official ``MANO_RIGHT.pkl`` /
+``MANO_LEFT.pkl`` (chumpy-pickled) through the reference's chumpy-free
+unpickler, and ``mirror_mano_model`` builds a left hand from a right one
+(and back) with the reference's sign patterns; multiplying by +-1 is exact,
+so both give the reference's arrays bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import io
+import pickle
+from typing import Any
 
 import numpy as np
 import torch
@@ -132,6 +141,106 @@ def synthetic_mano_model(
         for k, v in arrays.items()
     }
     return ManoModel(**fields, side=side)
+
+
+class _ChStub:
+    """Stands in for any ``chumpy`` class in a MANO pickle: its state is the
+    object's ``__dict__``, and ``__array__`` returns the numpy payload
+    stored under ``r``, ``x``, ``a`` or ``v`` (the first present)."""
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+
+    def __array__(self, dtype=None, copy=None):
+        for key in ("r", "x", "a", "v"):
+            if key in self.__dict__:
+                arr = np.asarray(self.__dict__[key])
+                return arr.astype(dtype) if dtype is not None else arr
+        raise ValueError("chumpy stub: no array payload found")
+
+
+class _ChumpyFreeUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if module.startswith("chumpy"):
+            return _ChStub
+        if module == "scipy.sparse.csc" or module.endswith("csc_matrix"):
+            import scipy.sparse
+
+            return scipy.sparse.csc_matrix
+        return super().find_class(module, name)
+
+
+def _chumpy_free_load(path: str) -> dict:
+    """Unpickle a MANO .pkl without the chumpy package (``hocon``'s
+    ``_chumpy_free_load``): chumpy objects become ``_ChStub``s and the old
+    ``scipy.sparse.csc`` module path maps to ``csc_matrix``."""
+    with open(path, "rb") as f:
+        data = f.read()
+    return _ChumpyFreeUnpickler(io.BytesIO(data), encoding="latin1").load()
+
+
+def _to_dense(x: Any) -> np.ndarray:
+    if hasattr(x, "todense"):
+        return np.asarray(x.todense())
+    return np.asarray(x)
+
+
+def load_mano_model(
+    path: str,
+    side: str = "right",
+    device: str | torch.device | None = None,
+) -> ManoModel:
+    """Official MANO assets at ``path`` as a ``ManoModel`` on ``device``
+    (CUDA if None): arrays dense f32, faces int64."""
+    dev = resolve_device(device)
+    raw = _chumpy_free_load(path)
+    np32 = lambda k: np.asarray(_to_dense(raw[k]), dtype=np.float32)  # noqa: E731
+    shapedirs = np32("shapedirs")
+    if side == "left":
+        # The left asset's shapedirs carry the right hand's sign in x (the
+        # reference applies the same fix, as manopth does).
+        shapedirs = shapedirs * np.array([-1.0, 1.0, 1.0], np.float32)[None, :, None]
+    host = dict(
+        v_template=np32("v_template"),
+        shapedirs=shapedirs,
+        posedirs=np32("posedirs"),
+        joint_regressor=np32("J_regressor"),
+        skin_weights=np32("weights"),
+        hands_components=np32("hands_components"),
+        hands_mean=np32("hands_mean"),
+        faces=np.asarray(raw["f"], dtype=np.int64),
+    )
+    return ManoModel(**{k: torch.from_numpy(v).to(dev) for k, v in host.items()}, side=side)
+
+
+def mirror_mano_model(model: ManoModel) -> ManoModel:
+    """The model mirrored across x = 0 (right <-> left hand), on its device.
+
+    Every quantity is conjugated with M = diag(-1, 1, 1), as the reference
+    does: positions (template, shape blendshapes) flip in x; axis-angle
+    vectors a become (a_x, -a_y, -a_z) in ``hands_mean`` and each 3-dof
+    segment of ``hands_components``; entry (i, k) of each joint's 3 x 3 pose
+    feature in ``posedirs`` takes the sign m_i m_k and its output row m_d;
+    the face winding reverses so normals stay outward. ``mano_forward`` on
+    the mirror with mirrored inputs (global_rot (r_x, -r_y, -r_z), trans
+    M trans) gives M verts / M joints of the original's forward.
+    """
+    dev = model.v_template.device
+    m = torch.tensor([-1.0, 1.0, 1.0], device=dev)
+    aa_flip = torch.tensor([1.0, -1.0, -1.0], device=dev)
+    s135 = torch.outer(m, m).reshape(9).repeat(15)
+    flip45 = aa_flip.repeat(15)
+    return ManoModel(
+        v_template=model.v_template * m,
+        shapedirs=model.shapedirs * m[None, :, None],
+        posedirs=model.posedirs * m[None, :, None] * s135[None, None, :],
+        joint_regressor=model.joint_regressor,
+        skin_weights=model.skin_weights,
+        hands_components=model.hands_components * flip45[None, :],
+        hands_mean=model.hands_mean * flip45,
+        faces=model.faces.flip(1),
+        side="left" if model.side == "right" else "right",
+    )
 
 
 def pca_to_full_pose(

@@ -7,8 +7,10 @@ eval and a snapshot, a second call auto-restores it and trains 2 more,
 covers its split exactly once through a padded tail batch, and ``train``
 runs. On FPHAB and HO-3D trees (``test_torch_parsers``' fixtures):
 ``trainwarp`` and ``evaluate`` run, and ``--check_data`` exits 0 on a clean
-tree and 1 on one with an anomaly. Every flag whose code is not ported raises ``NotImplementedError``
-naming its ROADMAP item, and ``main`` without ``device`` needs CUDA.
+tree and 1 on one with an anomaly. ``--workers 2``, a MANO pickle and
+``--mano_side left`` run through ``trainwarp`` and ``evaluate``. Every flag
+whose code is not ported raises ``NotImplementedError`` naming its ROADMAP
+item, and ``main`` without ``device`` needs CUDA.
 """
 
 import argparse
@@ -20,8 +22,10 @@ import pytest
 import torch
 
 import hocon.cli.opts as ref_opts
-from hocon_torch.cli import evaluate, predict, train, trainwarp
+from hocon_torch.cli import evaluate, opts, predict, train, trainwarp
+from hocon_torch.geometry.mano import synthetic_mano_arrays
 from test_torch_parsers import fphab_root, ho3d_root  # noqa: F401  (fixtures)
+from tools.fixture_trees import write_mano_pkl
 
 torch.set_num_threads(1)
 
@@ -201,12 +205,9 @@ def test_check_data_exits_one_on_an_anomaly(fphab_root, tmp_path, monkeypatch, c
 
 
 _UNPORTED = {
-    "workers": (["--workers", "2"], "item 11"),
     "torch_trunk": (["--torch_trunk", "trunk.pth"], "item 12"),
     "torch_ckpt": (["--torch_ckpt", "meshreg.pth"], "item 12"),
     "vis_freq": (["--vis_freq", "1"], "item 12"),
-    "mano_left": (["--mano_side", "left"], "item 11"),
-    "mano_pkl": (["--mano_assets", "mano"], "item 11"),
 }
 
 
@@ -219,6 +220,52 @@ def test_unported_flags_raise(case, tmp_path, monkeypatch):
     for cli in (trainwarp, evaluate):
         with pytest.raises(NotImplementedError, match=item):
             cli.main(["--image_size", "32"] + flags, device="cpu")
+
+
+# case: flags; the MANO model the CLI must load (None: the synthetic one)
+_WORKERS_AND_MANO = {
+    "workers": (["--workers", "2"], None),
+    "mano_left": (["--mano_assets", "mano", "--mano_side", "left"], "left"),
+    "mano_pkl": (["--mano_assets", "mano"], "right"),
+}
+
+
+@pytest.mark.parametrize("cli", ["trainwarp", "evaluate"])
+@pytest.mark.parametrize("case", list(_WORKERS_AND_MANO))
+def test_workers_and_mano_assets_run(case, cli, tmp_path, monkeypatch, capsys):
+    """One train step (trainwarp, no eval) or one eval pass at 32 px with
+    ``--workers 2`` (trainwarp's step then equals that of ``--workers 0``), or with
+    the chumpy-style ``mano/MANO_RIGHT.pkl`` of seed-1 arrays, loaded for
+    the right hand or mirrored for the left."""
+    monkeypatch.chdir(tmp_path)
+    arrays = synthetic_mano_arrays(1)
+    write_mano_pkl(os.path.join("mano", "MANO_RIGHT.pkl"), arrays)
+    loaded = []
+    load = opts.load_mano_or_synthetic
+    monkeypatch.setattr(opts, "load_mano_or_synthetic",
+                        lambda *a, **k: loaded.append(load(*a, **k)) or loaded[-1])
+    flags, side = _WORKERS_AND_MANO[case]
+    argv = SMALL + ["--batch_size", "2", "--max_steps_per_epoch", "1", "--use_objects"]
+    if cli == "trainwarp":
+        argv += ["--epochs", "1", "--eval_freq", "2", "--fraction", "0.5", "--exp_id", "run"]
+    result = CLIS[cli].main(argv + flags, device="cpu")
+    assert ("MANO assets not found" in capsys.readouterr().out) == (side is None)
+    if side is not None:
+        mirror = np.array([-1.0 if side == "left" else 1.0, 1.0, 1.0], np.float32)
+        assert loaded[0].side == side
+        np.testing.assert_array_equal(loaded[0].v_template.numpy(),
+                                      arrays["v_template"] * mirror)
+    if cli == "evaluate":
+        assert np.isfinite(result["mpjpe_mm"]) and np.isfinite(result["obj_verts_err_mm"])
+        return
+    assert result.step == 1
+    records = [json.loads(s) for s in open("checkpoints/run/metrics.jsonl")]
+    assert len(records) == 1 and all(np.isfinite(v) for v in records[0].values())
+    if case == "workers":
+        trainwarp.main(argv + ["--exp_id", "in_process"], device="cpu")
+        in_process = json.loads(open("checkpoints/in_process/metrics.jsonl").readline())
+        assert {k: v for k, v in in_process.items() if k != "time"} == {
+            k: v for k, v in records[0].items() if k != "time"}
 
 
 @pytest.mark.parametrize("name", list(CLIS))

@@ -16,12 +16,17 @@ FPHAB (``root/``):
 HO-3D (``root/``):
   <train|evaluation>/<seq>/rgb/%04d.png, <train|evaluation>/<seq>/meta/%04d.pkl
   models_root/models/<objName>/textured_simple.obj (or points.xyz)
+MANO (``write_mano_pkl``): MANO_RIGHT.pkl / MANO_LEFT.pkl as the official
+  assets store them, chumpy objects and a sparse joint regressor included.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
+import sys
+import types
 
 import numpy as np
 
@@ -115,3 +120,63 @@ def write_ho3d_frame(root: str, split_dir: str, seq: str, index: int, meta: dict
         pickle.dump(meta, f)
     with open(_makedirs_for(os.path.join(base, "rgb", f"{index:04d}{ext}")), "wb") as f:
         f.write(frame)
+
+
+@contextlib.contextmanager
+def _stand_in_modules(modules: dict):
+    """``sys.modules`` entries replaced by ``modules`` inside the block only."""
+    saved = {name: sys.modules.get(name) for name in modules}
+    sys.modules.update(modules)
+    try:
+        yield
+    finally:
+        for name, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = mod
+
+
+def write_mano_pkl(path: str, arrays: dict) -> None:
+    """MANO assets in the official pickle's layout (protocol 2): ``arrays``
+    holds v_template, shapedirs, posedirs, joint_regressor, skin_weights,
+    hands_components, hands_mean and faces (``synthetic_mano_arrays``'
+    names). As in the published files, shapedirs, posedirs, weights and
+    v_template are chumpy ``Ch`` objects (their payload under ``x``, ``r``,
+    ``a`` and ``v``: each key the loaders read), ``J_regressor`` is a
+    ``scipy.sparse.csc.csc_matrix`` (the module path of the scipy the assets
+    were written with) and ``f`` is uint32. Stand-ins for ``chumpy.ch.Ch``
+    and that csc class are registered in ``sys.modules`` only while
+    dumping, so a reader needs neither chumpy nor the old scipy path."""
+    import scipy.sparse
+
+    ch_mod = types.ModuleType("chumpy.ch")
+    ch_mod.Ch = type("Ch", (), {"__module__": "chumpy.ch"})
+    chumpy = types.ModuleType("chumpy")
+    chumpy.ch = ch_mod
+    csc_mod = types.ModuleType("scipy.sparse.csc")
+    csc_mod.csc_matrix = type("csc_matrix", (), {"__module__": "scipy.sparse.csc"})
+
+    def stand_in(cls, state: dict):
+        obj = cls.__new__(cls)
+        obj.__dict__.update(state)
+        return obj
+
+    regressor = scipy.sparse.csc_matrix(np.asarray(arrays["joint_regressor"], np.float64))
+    raw = {
+        "v_template": stand_in(ch_mod.Ch, {"v": np.asarray(arrays["v_template"], np.float64)}),
+        "shapedirs": stand_in(ch_mod.Ch, {"x": np.asarray(arrays["shapedirs"], np.float64)}),
+        "posedirs": stand_in(ch_mod.Ch, {"r": np.asarray(arrays["posedirs"], np.float64)}),
+        "weights": stand_in(ch_mod.Ch, {"a": np.asarray(arrays["skin_weights"], np.float64)}),
+        "J_regressor": stand_in(csc_mod.csc_matrix, dict(regressor.__dict__)),
+        "hands_components": np.asarray(arrays["hands_components"], np.float64),
+        "hands_mean": np.asarray(arrays["hands_mean"], np.float64),
+        "f": np.asarray(arrays["faces"], np.uint32),
+        "kintree_table": np.array([[4294967295, 0, 1, 2, 0, 4, 5, 0, 7, 8, 0, 10, 11, 0, 13, 14],
+                                   list(range(16))], np.int64),
+        "bs_style": "lbs",
+        "bs_type": "lrotmin",
+    }
+    stand_ins = {"chumpy": chumpy, "chumpy.ch": ch_mod, "scipy.sparse.csc": csc_mod}
+    with _stand_in_modules(stand_ins), open(_makedirs_for(path), "wb") as fh:
+        pickle.dump(raw, fh, protocol=2)
