@@ -91,7 +91,18 @@ Phases, each reported on its own line:
    pickle's layout (``tools/fixture_trees.write_mano_pkl``) read to CUDA
    tensors for the right hand, the left hand mirrored from it and read
    from a ``MANO_LEFT.pkl``; ``trainwarp --mano_side left`` from the pickle
-   at full width with finite terms and K1-K4 once per step.
+   at full width with finite terms and K1-K4 once per step;
+13. repro — the paper's consistency-gain ablation through the command line
+   of ``tools/repro_torch_consistency.py`` at the reference's shapes (128^2,
+   batch 16, 8 videos of 16 frames, 2 of 16 annotated, the box scene,
+   seed 0), its three stages cut from 300 steps to ``REPRO_STEPS``: every
+   counter zeroed just before and read just after, and around every step
+   the tool takes, so K1 at C = 2, K2, K3 and K4 launch exactly once in
+   each warp step and never in a supervised or eval step, and K1 at C = 3
+   once per dataset; the six MPJPE figures finite, the JSON line with the
+   reference's keys, the warp stage on a copy of the model; the phase's
+   and each stage's seconds printed. The gain's sign is not gated: one
+   short seed near the boundary is bistable.
 
 After the phases, and after a failed one too, the script stops every
 process it started (the workers' forkserver and multiprocessing's resource
@@ -1827,6 +1838,92 @@ def phase_workers(torch, device, smi: str, out_dir: str) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# Phase 13: the paper's consistency-gain ablation
+# (tools/repro_torch_consistency.py) at the reference's shapes: 128^2, batch
+# 16, 8 videos of 16 frames, 2 of 16 annotated, the box scene, seed 0, with
+# the protocol's 300 steps per stage cut to REPRO_STEPS.
+REPRO_STEPS = 30
+REPRO_ARGV = ["0", "--frames", "16", "--fraction", "0.125"]
+REPRO_DATASETS = 3  # single, pair and eval: one K1 render at C = 3 each
+# The reference's JSON keys, in order (scripts/repro_synthetic_consistency.py:184-199).
+REPRO_KEYS = ("seed", "obj_faces", "fraction", "frames_per_video", "lambda_consist", "spacing",
+              "baseline_mpjpe_unannotated_mm", "control_extra_steps_mpjpe_unannotated_mm",
+              "warp_mpjpe_unannotated_mm", "baseline_mpjpe_all_mm", "warp_mpjpe_all_mm",
+              "consistency_gain_mm")
+
+
+def phase_repro(torch, device, smi: str) -> None:
+    """``tools/repro_torch_consistency.py``'s command line on the card (see
+    the module note, phase 13): the launches of every step it takes are
+    read around that step, so K1 at C = 2, K2, K3 and K4 must launch once in
+    each warp step and never in a supervised or an eval step, and K1 at
+    C = 3 once per dataset."""
+    from tools import repro_torch_consistency as repro
+
+    made = {"make_train_step": "supervised", "make_warp_train_step": "warp",
+            "make_eval_step": "eval"}
+    saved = {name: getattr(repro, name) for name in (*made, "STEPS_BASE", "STEPS_WARP")}
+    deltas = {kind: [] for kind in made.values()}
+
+    def now() -> tuple:
+        launches, by_c = step_launches()
+        return (*launches.values(), by_c.get(3, 0))
+
+    def counting(kind, make):
+        def make_counted(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def counted(*a, **kw):
+                before = now()
+                out = step(*a, **kw)
+                deltas[kind].append(tuple(x - y for x, y in zip(now(), before)))
+                return out
+            return counted
+        return make_counted
+
+    for name, kind in made.items():
+        setattr(repro, name, counting(kind, saved[name]))
+    repro.STEPS_BASE = repro.STEPS_WARP = REPRO_STEPS
+    try:
+        counters_zeroed(torch)
+        t0 = time.perf_counter()
+        (run,), text = run_cli(repro.cli_main, REPRO_ARGV, device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, by_c = step_launches()
+    finally:
+        for name, value in saved.items():
+            setattr(repro, name, value)
+    record = json.loads(text)
+    once, none = (1, 1, 1, 1, 0), (0,) * 5
+    log(f"repro: {' '.join(REPRO_ARGV)} at {repro.RES}^2, batch {repro.BATCH}, "
+        f"{repro.VIDEOS} videos, {REPRO_STEPS} steps per stage: the phase {wall:.1f} s; "
+        f"datasets {run.seconds['datasets']:.2f} s, baseline {run.seconds['baseline']:.2f} s, "
+        f"warp {run.seconds['warp']:.2f} s, control {run.seconds['control']:.2f} s; launches "
+        f"{launches}, K1 at C = 3 {by_c.get(3, 0)}; card {smi}")
+    figures = {f"{stage} {part}": round(v, 4) for (stage, part), v in run.mpjpe.items()}
+    log(f"repro: MPJPE (mm) {figures}; gain {record['consistency_gain_mm']} mm "
+        f"(not gated: one short seed)")
+    if len(deltas["warp"]) != REPRO_STEPS or any(d != once for d in deltas["warp"]):
+        fail(f"repro: warp steps launched {sorted(set(deltas['warp']))} (K1 C=2, K2, K3, K4, "
+             f"K1 C=3) in {len(deltas['warp'])} steps, want {once} in each of {REPRO_STEPS}")
+    for kind in ("supervised", "eval"):
+        if not deltas[kind] or any(d != none for d in deltas[kind]):
+            fail(f"repro: {kind} steps launched {sorted(set(deltas[kind]))}, want none")
+    if (launches != {k: REPRO_STEPS for k in launches} or set(by_c) != {2, 3}
+            or by_c[3] != REPRO_DATASETS):
+        fail(f"repro: launches {launches} (by C {by_c}), want {REPRO_STEPS} of each and "
+             f"{REPRO_DATASETS} at C = 3")
+    if tuple(record) != REPRO_KEYS:
+        fail(f"repro: the line's keys {list(record)}, want the reference's {list(REPRO_KEYS)}")
+    if not all(math.isfinite(v) for v in run.mpjpe.values()):
+        fail(f"repro: MPJPE figures {figures} are not all finite")
+    if (run.warp_state.model is run.base_state.model or run.warp_state.step != REPRO_STEPS
+            or run.base_state.step != 2 * REPRO_STEPS):
+        fail(f"repro: stage states: warp step {run.warp_state.step}, baseline + control "
+             f"{run.base_state.step}, want {REPRO_STEPS} on a copy and {2 * REPRO_STEPS}")
+
+
 def descendants(pid: int) -> dict:
     """The processes under ``pid`` (children, their children, ...), from
     ``/proc``: pid -> (name, state)."""
@@ -1928,6 +2025,7 @@ def run_phases(torch, out_dir: str) -> list:
     phase_cli(torch, device, smi, out_dir, cli)
     phase_real_data(torch, device, smi, out_dir)
     phase_workers(torch, device, smi, out_dir)
+    phase_repro(torch, device, smi)
     for kern, name in ((k1, "raster_fwd"), (k1c3, "raster_fwd C=3"), (k2, "raster_bwd"),
                        (k3, "sample_fwd"), (k4, "sample_bwd")):
         kern["launches"] = cli[name]
