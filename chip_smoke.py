@@ -59,7 +59,20 @@ Phases, each reported on its own line:
    ``evaluate --resume`` reproduces the trainer's last val MPJPE;
    ``predict`` covers the val split once through a padded tail batch; a
    2-step ``--no_freeze_batchnorm`` run moves the running statistics;
-11. real_data — the FPHAB and HO-3D path: nvJPEG's decodes of the
+11. import_vis — PyTorch weight files and the visualisation, in a
+   temporary directory under ``--out``: a torchvision-named ResNet-18 file
+   and a reference-named checkpoint (``module.``-prefixed, axis-angle
+   object rotation) written with ``torch.save`` from a seed
+   (``tools/torch_weights.py``); ``train --torch_trunk --lr 0 --vis_freq 1``
+   at full width (2 steps with eval): every trunk tensor bit for bit the
+   file's, and one grid per eval batch; ``evaluate --torch_ckpt`` with the
+   axis-angle override and a finite MPJPE; ``trainwarp --vis_freq 1`` for
+   one epoch (2 steps, no eval) with every counter zeroed just before and
+   read just after, and read around the one panel call: it launches K1 at
+   C = 2 once and K3 once, K2 and K4 not at all, and its panels are finite
+   with a non-empty mask; the PNGs are required where ``import
+   matplotlib`` succeeds (the phase prints whether it does);
+12. real_data — the FPHAB and HO-3D path: nvJPEG's decodes of the
    committed JPEG fixtures (``tests/data/jpeg/``) against their cv2 decodes
    within ``JPEG_BARS`` (a copy shifted by ``JPEG_FAULT`` levels on one
    channel must fail them), a 1920 x 1080 frame encoded and decoded by
@@ -77,7 +90,7 @@ Phases, each reported on its own line:
    terms and a checkpoint; one batch's host time; the HO-3D fit-vertex
    memmap's build time; ``evaluate --check_data`` exits 0 and ``evaluate``
    of the FPHAB checkpoint gives a finite MPJPE on HO-3D;
-12. workers — DataLoader workers and MANO assets, in a temporary directory
+13. workers — DataLoader workers and MANO assets, in a temporary directory
    under ``--out``: an FPHAB tree of 3 + 1 sequences of 64 frames (12 steps
    of 16 pairs per epoch) and the HO-3D tree; the first batch of
    ``WorkerEpochLoader`` with W workers (W from ``os.cpu_count()``,
@@ -92,7 +105,7 @@ Phases, each reported on its own line:
    tensors for the right hand, the left hand mirrored from it and read
    from a ``MANO_LEFT.pkl``; ``trainwarp --mano_side left`` from the pickle
    at full width with finite terms and K1-K4 once per step;
-13. repro — the paper's consistency-gain ablation through the command line
+14. repro — the paper's consistency-gain ablation through the command line
    of ``tools/repro_torch_consistency.py`` at the reference's shapes (128^2,
    batch 16, 8 videos of 16 frames, 2 of 16 annotated, the box scene,
    seed 0), its three stages cut from 300 steps to ``REPRO_STEPS``: every
@@ -1193,7 +1206,126 @@ def phase_cli(torch, device, smi: str, out_dir: str, kernels: dict) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
-# Phase 11: FPHAB and HO-3D trees in the official layouts
+# Phase 11: PyTorch weight files through the CLIs, and the visualisation.
+IMPORT_FLAGS = {"dataset": "synthetic", "image_size": RES, "batch_size": PAIRS,
+                "use_objects": True, "synth_videos": 2, "synth_frames": 16, "fraction": 0.25,
+                "epochs": 1}
+IMPORT_STEPS = 2  # 2 videos x 16 frames = 32 pairs (or frames) = 2 steps of 16
+
+
+def _trunk_bits_equal(torch, trunk, tv: dict) -> tuple:
+    """(tensors compared, tensors differing) between a port trunk and a
+    torchvision state dict, by ``tools.torch_weights.torchvision_name``."""
+    from tools.torch_weights import torchvision_name
+
+    own = trunk.state_dict()
+    differ = [k for k, v in own.items()
+              if not torch.equal(v.cpu(), tv[torchvision_name(k)])]
+    return len(own), differ
+
+
+def phase_import_vis(torch, device, smi: str, out_dir: str) -> None:
+    """Phase 11 (see the module note): ``--torch_trunk``, ``--torch_ckpt``
+    and ``--vis_freq`` through the CLIs at full width."""
+    import shutil
+    import tempfile
+
+    from hocon_torch.cli import evaluate, train, trainwarp
+    from hocon_torch.visualize import warpvis
+    from tools.torch_weights import reference_checkpoint, torchvision_resnet
+
+    try:
+        import matplotlib  # noqa: F401
+
+        has_mpl = f"matplotlib {matplotlib.__version__}"
+    except ImportError:
+        has_mpl = None
+    log(f"import_vis: import matplotlib: {has_mpl or 'fails (no PNG is written)'}")
+    here = os.getcwd()
+    work = tempfile.mkdtemp(prefix="import-", dir=out_dir)
+    os.chdir(work)
+    t_phase = time.perf_counter()
+    try:
+        tv = torchvision_resnet(11)
+        torch.save(tv, "trunk.pth")
+        torch.save({"state_dict": {f"module.{k}": v for k, v in reference_checkpoint(12).items()},
+                    "epoch": 3}, "ref.pth")
+
+        flags = {**IMPORT_FLAGS, "torch_trunk": "trunk.pth", "lr": 0.0, "exp_id": "trunk",
+                 "vis_freq": 1}
+        state, text = run_cli(train.main, cli_argv(flags), device)
+        n, differ = _trunk_bits_equal(torch, state.model.trunk, tv)
+        images = sorted(os.listdir(os.path.join("checkpoints", "trunk", "images"))) \
+            if os.path.isdir(os.path.join("checkpoints", "trunk", "images")) else []
+        log(f"import_vis: train --torch_trunk --lr 0, {state.step} steps: {n - len(differ)} of "
+            f"{n} trunk tensors bit for bit the file's; --vis_freq 1 wrote {images}")
+        if "imported ImageNet trunk weights" not in text or differ or state.step != IMPORT_STEPS:
+            fail(f"import_vis: the trunk after {state.step} steps at rate 0 differs from the "
+                 f"file in {differ[:5]} ({len(differ)} tensors)")
+        if has_mpl and images != [f"ep0_b{i}.png" for i in range(IMPORT_STEPS)]:
+            fail(f"import_vis: train --vis_freq 1 wrote {images}")
+
+        flags = {k: IMPORT_FLAGS[k] for k in ("dataset", "image_size", "batch_size",
+                                               "use_objects", "synth_videos", "synth_frames")}
+        metrics, text = run_cli(evaluate.main, cli_argv({**flags, "torch_ckpt": "ref.pth"}),
+                                device)
+        log(f"import_vis: evaluate --torch_ckpt: MPJPE {metrics['mpjpe_mm']:.4f} mm, AUC "
+            f"{metrics['auc']:.4f}")
+        if ("implies --obj_rot_param axisang" not in text
+                or "imported reference checkpoint" not in text
+                or not math.isfinite(metrics["mpjpe_mm"])):
+            fail(f"import_vis: evaluate --torch_ckpt gave {metrics} without the import lines")
+
+        panels = []
+        panel_calls = warpvis.warp_panels
+
+        def counted_panels(*args, **kwargs):
+            torch.cuda.synchronize()
+            before = step_launches()
+            out = panel_calls(*args, **kwargs)
+            torch.cuda.synchronize()
+            after = step_launches()
+            panels.append(({k: after[0][k] - before[0][k] for k in before[0]}, out))
+            return out
+
+        warpvis.warp_panels = counted_panels
+        try:
+            counters_zeroed(torch)
+            flags = {**IMPORT_FLAGS, "eval_freq": 2, "vis_freq": 1, "exp_id": "vis"}
+            state, _ = run_cli(trainwarp.main, cli_argv(flags), device)
+            launches = step_launches()[0]
+        finally:
+            warpvis.warp_panels = panel_calls
+        if len(panels) != 1:
+            fail(f"import_vis: trainwarp --vis_freq 1 made {len(panels)} panel calls, want 1")
+        delta, (batch_np, preds, warp) = panels[0]
+        png = os.path.join("checkpoints", "vis", "images", "warp_ep0.png")
+        size = os.path.getsize(png) if os.path.exists(png) else 0
+        finite = all(np.isfinite(a).all() for a in (*warp.values(), preds["joints2d"]))
+        area = float(warp["mask"].sum(axis=(1, 2)).mean())
+        log(f"import_vis: trainwarp --vis_freq 1, {state.step} steps: the panel call launched "
+            f"{delta}; the run {launches}; panels {[tuple(a.shape) for a in warp.values()]}, "
+            f"finite {finite}, mask area {area:.1f} px per row; {png} {size} bytes")
+        want_panel = {"raster_fwd": 1, "raster_bwd": 0, "sample_fwd": 1, "sample_bwd": 0}
+        want_run = {"raster_fwd": IMPORT_STEPS + 1, "raster_bwd": IMPORT_STEPS,
+                    "sample_fwd": IMPORT_STEPS + 1, "sample_bwd": IMPORT_STEPS}
+        if delta != want_panel or launches != want_run or state.step != IMPORT_STEPS:
+            fail(f"import_vis: panel launches {delta} (want {want_panel}), run {launches} "
+                 f"(want {want_run}) over {state.step} steps")
+        if not finite or area <= 0 or warp["mask"].shape != (4, RES, RES):
+            fail(f"import_vis: panels finite {finite}, mask area {area}, shape "
+                 f"{warp['mask'].shape}")
+        if has_mpl and size <= 1024:
+            fail(f"import_vis: {png} is {size} bytes")
+        if has_mpl:
+            shutil.copy(png, os.path.join(out_dir, "warp_ep0.png"))
+        log(f"import_vis: the phase took {time.perf_counter() - t_phase:.1f} s; card {smi}")
+    finally:
+        os.chdir(here)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# Phase 12: FPHAB and HO-3D trees in the official layouts
 # (tools/fixture_trees.py), read by the port's parsers and CLIs.
 REAL_FRAMES = 16  # frames per sequence
 FPHAB_TRAIN = ("Subject_1", "Subject_3", "Subject_4")
@@ -1419,7 +1551,7 @@ def check_decoders(torch, device, smi: str) -> None:
 
 
 def phase_real_data(torch, device, smi: str, out_dir: str) -> None:
-    """Phase 11: the decoders, then the port's CLIs on FPHAB and HO-3D trees
+    """Phase 12: the decoders, then the port's CLIs on FPHAB and HO-3D trees
     (see the module note). Every JPEG on the path goes through nvJPEG: the
     CPU decoder is replaced by a failure for the phase."""
     import shutil
@@ -1541,7 +1673,7 @@ def phase_real_data(torch, device, smi: str, out_dir: str) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
-# Phase 12: the DataLoader workers on FPHAB and HO-3D trees, and MANO assets
+# Phase 13: the DataLoader workers on FPHAB and HO-3D trees, and MANO assets
 # from a pickle, with the left hand.
 WORKER_FRAMES = 64  # frames per FPHAB sequence: 3 x 64 = 192 pairs = 12 steps of 16
 WORKER_STEPS = 12
@@ -1713,7 +1845,7 @@ def check_mano_assets(torch, device, work: str) -> str:
 
 
 def phase_workers(torch, device, smi: str, out_dir: str) -> None:
-    """Phase 12: DataLoader workers for ``trainwarp`` on FPHAB and
+    """Phase 13: DataLoader workers for ``trainwarp`` on FPHAB and
     ``evaluate`` on HO-3D, and MANO assets from a pickle with the left hand
     (see the module note)."""
     import shutil
@@ -1838,7 +1970,7 @@ def phase_workers(torch, device, smi: str, out_dir: str) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
-# Phase 13: the paper's consistency-gain ablation
+# Phase 14: the paper's consistency-gain ablation
 # (tools/repro_torch_consistency.py) at the reference's shapes: 128^2, batch
 # 16, 8 videos of 16 frames, 2 of 16 annotated, the box scene, seed 0, with
 # the protocol's 300 steps per stage cut to REPRO_STEPS.
@@ -1854,7 +1986,7 @@ REPRO_KEYS = ("seed", "obj_faces", "fraction", "frames_per_video", "lambda_consi
 
 def phase_repro(torch, device, smi: str) -> None:
     """``tools/repro_torch_consistency.py``'s command line on the card (see
-    the module note, phase 13): the launches of every step it takes are
+    the module note, phase 14): the launches of every step it takes are
     read around that step, so K1 at C = 2, K2, K3 and K4 must launch once in
     each warp step and never in a supervised or an eval step, and K1 at
     C = 3 once per dataset."""
@@ -2023,6 +2155,7 @@ def run_phases(torch, out_dir: str) -> list:
     # The slice's main path, the trainer's CLI: its launches go into the table.
     cli = {}
     phase_cli(torch, device, smi, out_dir, cli)
+    phase_import_vis(torch, device, smi, out_dir)
     phase_real_data(torch, device, smi, out_dir)
     phase_workers(torch, device, smi, out_dir)
     phase_repro(torch, device, smi)

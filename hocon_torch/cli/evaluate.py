@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from hocon_torch.cli import opts
-from hocon_torch.cli.train import build_model
+from hocon_torch.cli.train import apply_torch_init, build_model
 from hocon_torch.data.check import check_dataset
 from hocon_torch.data.factory import get_dataset
 from hocon_torch.data.pipeline import WorkerEvalLoader
@@ -66,6 +66,7 @@ def load_for_eval(args, device: torch.device, optimizer=None):
     loader = WorkerEvalLoader(ds, args.batch_size, worker_count=args.workers)
     model = build_model(args, mano, device)
     state = create_train_state(model, optimizer or make_optimizer())
+    state = apply_torch_init(args, model, state)
     if args.resume:
         state = CheckpointManager(args.resume).restore(state)
         print(f"loaded checkpoint from {args.resume}")
@@ -82,7 +83,6 @@ def predictions(loader, state, eval_step):
 
 def main(argv=None, device: str | torch.device | None = None):
     args = build_parser().parse_args(argv)
-    opts.check_unported(args)
     dev = resolve_device(device)
     loader, state, eval_step = load_for_eval(args, dev, make_optimizer(args.optimizer, args.lr))
     with loader:

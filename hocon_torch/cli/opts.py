@@ -2,9 +2,7 @@
 
 Port of ``hocon/cli/opts.py``: the same four groups (experiment, net,
 data, warp) with the same flags and defaults, so a command line means the
-same to both packages. Flags whose code is not ported yet are accepted
-here and refused by ``check_unported`` with ``NotImplementedError`` naming
-the ROADMAP item that ports it; nothing falls back silently.
+same to both packages.
 """
 
 from __future__ import annotations
@@ -143,21 +141,6 @@ def add_warp_opts(p: argparse.ArgumentParser):
     g.add_argument("--clip_len", type=int, default=2,
                    help="frames per consistency sample (2 = pairs; >2 = one "
                         "annotated ref + clip_len-1 targets)")
-
-
-
-def check_unported(args) -> None:
-    """Raise ``NotImplementedError`` for a flag whose code is not ported."""
-    unported = (
-        (getattr(args, "torch_trunk", ""), "--torch_trunk (the torchvision importer)", 12),
-        (getattr(args, "torch_ckpt", ""), "--torch_ckpt (the reference checkpoint importer)", 12),
-        (getattr(args, "vis_freq", 0) > 0, "--vis_freq > 0 (visualisation)", 12),
-    )
-    for used, what, item in unported:
-        if used:
-            raise NotImplementedError(
-                f"{what} is not ported to hocon_torch yet (ROADMAP queue 1, item {item})"
-            )
 
 
 def load_mano_or_synthetic(assets_dir: str, side: str = "right", device=None):

@@ -37,7 +37,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None, device: str | torch.device | None = None):
     args = build_parser().parse_args(argv)
-    opts.check_unported(args)
     dev = resolve_device(device)
     loader, state, eval_step = load_for_eval(args, dev)
 

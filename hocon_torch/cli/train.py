@@ -26,6 +26,7 @@ from hocon_torch.data.factory import get_dataset
 from hocon_torch.data.pipeline import BatchLoader, WorkerEpochLoader, WorkerEvalLoader
 from hocon_torch.device import resolve_device
 from hocon_torch.exp.args import save_args
+from hocon_torch.models.backbone import STAGE_SIZES as _IMPORT_STAGE_SIZES
 from hocon_torch.models.hocnet import HOCNet
 from hocon_torch.train.checkpoints import CheckpointManager, restore_for_warm_start
 from hocon_torch.train.loop import epoch_pass
@@ -43,6 +44,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def build_model(args, mano, device: torch.device, seed: int = 0) -> HOCNet:
+    if getattr(args, "torch_ckpt", "") and args.use_objects and args.obj_rot_param != "axisang":
+        print(
+            "[hocon] --torch_ckpt implies --obj_rot_param axisang (the "
+            "reference regresses axis-angle; the 6d head has a different "
+            "output width) — overriding."
+        )
+        args.obj_rot_param = "axisang"
     return HOCNet(
         ncomps=args.ncomps,
         center_idx=args.center_idx,
@@ -55,6 +63,45 @@ def build_model(args, mano, device: torch.device, seed: int = 0) -> HOCNet:
         seed=seed,
         device=device,
     )
+
+
+def apply_torch_init(args, model, state):
+    """``--torch_trunk`` / ``--torch_ckpt``: import PyTorch weights into the
+    freshly created train state's model, in place (its optimizer keeps
+    holding the same parameters). Returns ``state``.
+
+    Callers apply it before resume, auto-restore and warm start, so any
+    checkpoint restore overrides the import: the import is an init.
+    """
+    trunk_path = getattr(args, "torch_trunk", "")
+    ckpt_path = getattr(args, "torch_ckpt", "")
+    if not trunk_path and not ckpt_path:
+        return state
+    if trunk_path and ckpt_path:
+        raise ValueError("--torch_trunk and --torch_ckpt are exclusive")
+    if args.backbone not in _IMPORT_STAGE_SIZES:
+        raise ValueError(
+            f"torch import supports backbones {sorted(_IMPORT_STAGE_SIZES)}, "
+            f"not {args.backbone!r}"
+        )
+    from hocon_torch.utils.torch_import import (
+        import_hocnet,
+        import_trunk_into_hocnet,
+        load_torch_checkpoint,
+    )
+
+    stages = _IMPORT_STAGE_SIZES[args.backbone]
+    if ckpt_path:
+        import_hocnet(
+            model, load_torch_checkpoint(ckpt_path), trunk_prefix=args.torch_trunk_prefix,
+            stage_sizes=stages, strict_heads=not getattr(args, "torch_loose", False),
+        )
+        print(f"[hocon] imported reference checkpoint {ckpt_path}")
+    else:
+        import_trunk_into_hocnet(model, load_torch_checkpoint(trunk_path), prefix="",
+                                 stage_sizes=stages)
+        print(f"[hocon] imported ImageNet trunk weights from {trunk_path}")
+    return state
 
 
 def hand_lambdas(args):
@@ -161,11 +208,15 @@ def _profiler(device: torch.device):
 
 
 def fit(args, state, train_step, eval_step, run_dir, writer, train_loader, val_loader,
-        ckpt, device, train_line) -> object:
+        ckpt, device, train_line, vis_fn=None, epoch_vis=None) -> object:
     """The epoch loop: train, eval every ``--eval_freq`` epochs, snapshot
     every ``--snapshot_freq``; ``train_line(metrics)`` formats the train
     summary. ``--profile`` traces epoch 0 into ``<run_dir>/trace``. The
-    loaders are closed when it returns or raises."""
+    loaders are closed when it returns or raises.
+
+    With ``--vis_freq N``: ``vis_fn(epoch, i, batch, preds)`` runs on every
+    N-th batch of the eval pass (``epoch_pass``'s hook), and
+    ``epoch_vis(epoch, state)`` after every N-th train pass."""
     max_steps = args.max_steps_per_epoch or None
     # Worker processes start with a loader's first epoch and stop here.
     with contextlib.closing(train_loader), contextlib.closing(val_loader):
@@ -181,12 +232,15 @@ def fit(args, state, train_step, eval_step, run_dir, writer, train_loader, val_l
             if traced:
                 os.makedirs(os.path.join(run_dir, "trace"), exist_ok=True)
                 prof.export_chrome_trace(os.path.join(run_dir, "trace", "epoch0.json"))
+            if epoch_vis is not None and args.vis_freq and (epoch + 1) % args.vis_freq == 0:
+                epoch_vis(epoch, state)
             print(f"[epoch {epoch}] train {train_line(train_metrics)} "
                   f"({train_metrics['steps_per_sec']:.2f} steps/s)")
             if (epoch + 1) % args.eval_freq == 0:
                 _, val_metrics = epoch_pass(
                     val_loader, state, eval_step, train=False, epoch=epoch,
                     device=device, writer=writer, max_steps=max_steps,
+                    vis_fn=vis_fn, vis_freq=args.vis_freq,
                 )
                 print(f"[epoch {epoch}] val MPJPE={val_metrics['mpjpe_mm']:.2f}mm "
                       f"AUC={val_metrics['auc']:.3f}")
@@ -200,7 +254,6 @@ def fit(args, state, train_step, eval_step, run_dir, writer, train_loader, val_l
 
 def main(argv=None, device: str | torch.device | None = None):
     args = build_parser().parse_args(argv)
-    opts.check_unported(args)
     dev = resolve_device(device)
     t0 = time.perf_counter()
 
@@ -211,17 +264,25 @@ def main(argv=None, device: str | torch.device | None = None):
         args.lr_decay_step, args.lr_decay_gamma, args.grad_clip,
     )
     state = create_train_state(model, optimizer)
+    state = apply_torch_init(args, model, state)
     state, ckpt = restore(args, state, run_dir)
 
     train_step = make_train_step(
         model, mano, optimizer, hand_lambdas(args), obj_lambdas(args), device=dev
     )
     eval_step = make_eval_step(model, mano, device=dev)
+    vis_fn = None
+    if args.vis_freq:
+        from hocon_torch.visualize.samplevis import sample_vis
+
+        def vis_fn(ep, i, batch, preds):
+            sample_vis(batch, preds, os.path.join(run_dir, "images", f"ep{ep}_b{i}.png"))
     print(f"[hocon] set-up {time.perf_counter() - t0:.3f} s (data, model, restore)")
     return fit(
         args, state, train_step, eval_step, run_dir, writer, train_loader, val_loader,
         ckpt, dev,
         lambda m: f"loss={m.get('loss_total', float('nan')):.4f}",
+        vis_fn=vis_fn,
     )
 
 

@@ -18,12 +18,14 @@ pass ``device="cpu"``.
 
 from __future__ import annotations
 
+import os
 import time
 
 import torch
 
 from hocon_torch.cli import opts
 from hocon_torch.cli.train import (
+    apply_torch_init,
     build_model,
     build_parser as _train_parser,
     fit,
@@ -32,6 +34,7 @@ from hocon_torch.cli.train import (
     restore,
     setup_common,
 )
+from hocon_torch.data.pipeline import probe_batch
 from hocon_torch.device import resolve_device
 from hocon_torch.train.state import create_train_state, make_optimizer
 from hocon_torch.train.steps import make_eval_step, make_warp_train_step
@@ -47,7 +50,6 @@ def build_parser():
 def main(argv=None, device: str | torch.device | None = None):
     args = build_parser().parse_args(argv)
     args.pair_mode = True
-    opts.check_unported(args)
     dev = resolve_device(device)
     t0 = time.perf_counter()
 
@@ -58,6 +60,7 @@ def main(argv=None, device: str | torch.device | None = None):
         args.lr_decay_step, args.lr_decay_gamma, args.grad_clip,
     )
     state = create_train_state(model, optimizer)
+    state = apply_torch_init(args, model, state)
     state, ckpt = restore(args, state, run_dir)
 
     train_step = make_warp_train_step(
@@ -71,12 +74,29 @@ def main(argv=None, device: str | torch.device | None = None):
         device=dev,
     )
     eval_step = make_eval_step(model, mano, device=dev)
+    epoch_vis = None
+    if args.vis_freq:
+        from hocon_torch.visualize.warpvis import save_warp_panels
+
+        # Warp panels every N epochs, from one batch drawn straight from the
+        # dataset (warp training has no per-batch visualisation hook).
+        vis_batch = probe_batch(train_loader.dataset, train_loader.local_batch)
+
+        def epoch_vis(epoch, state):
+            save_warp_panels(
+                model, mano, state, vis_batch,
+                os.path.join(run_dir, "images", f"warp_ep{epoch}.png"),
+                image_size=(args.image_size, args.image_size),
+                backend=args.raster_backend, consist_gt_refs=args.consist_gt_refs,
+                sigma=args.raster_sigma, gamma=args.raster_gamma, device=dev,
+            )
     print(f"[hocon] set-up {time.perf_counter() - t0:.3f} s (data, model, restore)")
     return fit(
         args, state, train_step, eval_step, run_dir, writer, train_loader, val_loader,
         ckpt, dev,
         lambda m: (f"loss={m.get('loss_total', float('nan')):.4f} "
                    f"photo={m.get('photo_total', float('nan')):.4f}"),
+        epoch_vis=epoch_vis,
     )
 
 

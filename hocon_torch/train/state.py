@@ -64,7 +64,8 @@ class OptaxAdam(torch.optim.AdamW):
             saved.append((lr, eps, wd))
             group["lr"] = lr * root_bc2 / bc1
             group["eps"] = eps * root_bc2
-            group["weight_decay"] = wd * lr / group["lr"]
+            # At rate 0 the step moves nothing, whatever the decay.
+            group["weight_decay"] = wd * lr / group["lr"] if lr else wd
         super().step()
         for group, (lr, eps, wd) in zip(self.param_groups, saved):
             group["lr"], group["eps"], group["weight_decay"] = lr, eps, wd

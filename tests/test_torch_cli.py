@@ -8,9 +8,10 @@ covers its split exactly once through a padded tail batch, and ``train``
 runs. On FPHAB and HO-3D trees (``test_torch_parsers``' fixtures):
 ``trainwarp`` and ``evaluate`` run, and ``--check_data`` exits 0 on a clean
 tree and 1 on one with an anomaly. ``--workers 2``, a MANO pickle and
-``--mano_side left`` run through ``trainwarp`` and ``evaluate``. Every flag
-whose code is not ported raises ``NotImplementedError`` naming its ROADMAP
-item, and ``main`` without ``device`` needs CUDA.
+``--mano_side left`` run through ``trainwarp`` and ``evaluate``, and
+``main`` without ``device`` needs CUDA. The weight-import and
+visualisation flags are tested in ``test_torch_weight_import`` and
+``test_torch_visualize``.
 """
 
 import argparse
@@ -202,24 +203,6 @@ def test_check_data_exits_one_on_an_anomaly(fphab_root, tmp_path, monkeypatch, c
     assert exit_info.value.code == 1
     out = capsys.readouterr().out
     assert "image missing" in out and "ANOMALIES" in out
-
-
-_UNPORTED = {
-    "torch_trunk": (["--torch_trunk", "trunk.pth"], "item 12"),
-    "torch_ckpt": (["--torch_ckpt", "meshreg.pth"], "item 12"),
-    "vis_freq": (["--vis_freq", "1"], "item 12"),
-}
-
-
-@pytest.mark.parametrize("case", list(_UNPORTED))
-def test_unported_flags_raise(case, tmp_path, monkeypatch):
-    monkeypatch.chdir(tmp_path)
-    os.makedirs("mano")
-    open("mano/MANO_RIGHT.pkl", "wb").close()
-    flags, item = _UNPORTED[case]
-    for cli in (trainwarp, evaluate):
-        with pytest.raises(NotImplementedError, match=item):
-            cli.main(["--image_size", "32"] + flags, device="cpu")
 
 
 # case: flags; the MANO model the CLI must load (None: the synthetic one)

@@ -291,3 +291,38 @@ if __name__ == "__main__":
     for name, figs in table.items():
         cells = " ".join(f"{figs[f]:.4f}" for f in FIGURES)
         print(f"{name:22s} {cells} gain {_gain(figs):.4f}")
+
+
+def test_plain_kernel_swap_routes_and_restores(monkeypatch):
+    """``tools/repro_plain_kernels.PlainSwap`` rebinds the four kernels'
+    ``*_cuda`` launchers to their plain versions and counts the calls; K1
+    at 3 attribute channels (the dataset's render) keeps its launcher;
+    leaving restores every launcher. Without a card the tool raises."""
+    import tools.repro_plain_kernels as plain_tool
+
+    seen = []
+    for mod, name in ((TRC, "raster_fwd_plain"), (TRC, "raster_bwd_plain"),
+                      (TSC, "sample_fwd_plain"), (TSC, "sample_bwd_plain"),
+                      (TRC, "raster_fwd_cuda")):
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, **k: seen.append(_n) or _n)
+    launchers = {n: getattr(m, n) for m, n in ((TRC, "raster_fwd_cuda"), (TRC, "raster_bwd_cuda"),
+                                               (TSC, "sample_fwd_cuda"), (TSC, "sample_bwd_cuda"))}
+
+    def coeffs(c):
+        return torch.zeros(1, 64, 3 * (TRC.N_GEOM_ROWS + c))
+
+    swap = plain_tool.PlainSwap()
+    with swap:
+        assert TRC.raster_fwd_cuda(coeffs(2), 0, 0, (8, 8), 1.0, 0.1, None) == "raster_fwd_plain"
+        assert TRC.raster_fwd_cuda(coeffs(3), 0, 0, (8, 8), 1.0, 0.1, None) == "raster_fwd_cuda"
+        assert TRC.raster_bwd_cuda(*range(14)) == "raster_bwd_plain"
+        assert TSC.sample_fwd_cuda(0, 0) == "sample_fwd_plain"
+        assert TSC.sample_bwd_cuda(0, 0, 0) == "sample_bwd_plain"
+    assert swap.calls == {"K1": 1, "K2": 1, "K3": 1, "K4": 1}
+    assert seen == ["raster_fwd_plain", "raster_fwd_cuda", "raster_bwd_plain", "sample_fwd_plain",
+                    "sample_bwd_plain"]
+    for name, fn in launchers.items():
+        assert getattr(TRC if name.startswith("raster") else TSC, name) is fn, name
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        plain_tool.main(["0"])

@@ -148,6 +148,24 @@ print("IMPORTED")
     assert "IMPORTED" in r.stdout
 
 
+def test_plain_kernel_tool_imports_no_jax_and_no_reference():
+    """``tools/repro_plain_kernels.py`` imports the port only."""
+    script = r"""
+import sys
+import tools.repro_plain_kernels
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "hocon"))
+assert not bad, bad
+assert "tools.repro_torch_consistency" in sys.modules
+print("IMPORTED")
+"""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", script], cwd=repo, capture_output=True,
+                       text=True, timeout=300, env=dict(os.environ, PYTHONPATH=repo))
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "IMPORTED" in r.stdout
+
+
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
