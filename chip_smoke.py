@@ -117,6 +117,19 @@ Phases, each reported on its own line:
    and each stage's seconds printed. The gain's sign is not gated: one
    short seed near the boundary is bistable.
 
+15. ddp — data parallelism (``hocon_torch.train.sharding``): two ranks
+   spawned on the one card over gloo with CUDA tensors (NCCL refuses two
+   ranks on one card) take ``trainwarp``'s step at full width on the two
+   halves (8 + 8 pairs) of the data phase's batch, ``DDP_STEPS`` steps from
+   the weights of seed 0: K1 at C = 2, K2, K3 and K4 launched once per step
+   in each rank (counters zeroed before and read after each rank's steps),
+   the ranks' terms, summed gradients and parameters equal bit for bit,
+   and the step-1 terms and gradients held against this process's step on
+   the whole batch (``DDP_BARS``); then ``python -m torch.distributed.run
+   --standalone --nproc_per_node 1 -m hocon_torch.cli.trainwarp`` over
+   NCCL, whose weights after 2 steps must be bit for bit those of the same
+   command line run without it.
+
 After the phases, and after a failed one too, the script stops every
 process it started (the workers' forkserver and multiprocessing's resource
 tracker; the workers stop with their CLI calls) and fails if any process
@@ -2056,6 +2069,182 @@ def phase_repro(torch, device, smi: str) -> None:
              f"{run.base_state.step}, want {REPRO_STEPS} on a copy and {2 * REPRO_STEPS}")
 
 
+# Phase 15: data parallelism.
+DDP_WORLD = 2
+DDP_STEPS = 2
+# Step 1, 2 ranks against 1 process (relative; each tensor's gradient error
+# relative to the global norm). Measured on the card: see PERF.md section 6.
+DDP_BARS = {"terms": 1e-4, "grads": 1e-4}
+DDP_CLI_FLAGS = {**CLI_FLAGS, "synth_videos": 2, "epochs": 1, "eval_freq": 2, "exp_id": "ddp"}
+
+
+def _flat(torch, tensors):
+    return torch.cat([t.detach().reshape(-1).float().cpu() for t in tensors])
+
+
+def ddp_steps(torch, batch, mesh, rank: int, world: int, device) -> dict:
+    """``DDP_STEPS`` warp train steps of HOCNet (seed 0, bf16 autocast) on
+    rank ``rank``'s shard of ``batch`` under ``mesh`` (None: the whole
+    batch); the terms of each step, the summed gradients of step 1, the
+    parameters after the last, the launches and the seconds."""
+    from hocon_torch.geometry.mano import synthetic_mano_model
+    from hocon_torch.models.hocnet import HOCNet
+    from hocon_torch.train.sharding import replicate
+    from hocon_torch.train.state import create_train_state, make_optimizer
+    from hocon_torch.train.steps import batch_to_device, make_warp_train_step
+
+    def shard(x):
+        if isinstance(x, dict):
+            return {k: shard(v) for k, v in x.items()}
+        n = x.shape[0] // world
+        return x[rank * n:(rank + 1) * n]
+
+    mano = synthetic_mano_model(0, device=device)
+    model = HOCNet(with_object=True, dtype=torch.bfloat16, seed=0, device=device)
+    replicate(model, mesh)
+    optimizer = make_optimizer("adam", 5e-4)
+    state = create_train_state(model, optimizer)
+    step = make_warp_train_step(model, mano, optimizer, image_size=(RES, RES), device=device,
+                                mesh=mesh)
+    dev = torch.device(device)
+    local = batch_to_device(shard(batch), dev)
+    if dev.type == "cuda":
+        counters_zeroed(torch)
+    out = {"terms": []}
+    t0 = time.perf_counter()
+    for i in range(DDP_STEPS):
+        state, terms = step(state, local)
+        out["terms"].append({k: float(v) for k, v in terms.items()})
+        if i == 0:
+            out["grads"] = _flat(torch, (p.grad for p in model.parameters()))
+            out["slices"] = np.cumsum([0] + [p.numel() for p in model.parameters()])
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = step_launches()[0]
+    out["params"] = _flat(torch, model.parameters())
+    return out
+
+
+def _ddp_rank(index: int, work: str, device: str) -> None:
+    """A spawned rank of the phase's 2-rank mesh over gloo on ``device``
+    (card 0)."""
+    import pickle
+
+    import torch
+
+    from hocon_torch.train import sharding
+
+    with open(os.path.join(work, "batch.pkl"), "rb") as fh:
+        batch = pickle.load(fh)
+    mesh = sharding.make_mesh(device, backend="gloo", rank=index, world_size=DDP_WORLD,
+                              init_method=f"file://{work}/init", timeout_s=300)
+    try:
+        out = ddp_steps(torch, batch, mesh, index, DDP_WORLD, mesh.device)
+    finally:
+        sharding.teardown(mesh)
+    torch.save(out, os.path.join(work, f"rank{index}.pt"))
+
+
+def ddp_errors(got: dict, want: dict) -> dict:
+    """Step-1 terms (largest relative error) and summed gradients (largest
+    per-tensor error and the error over all, relative to the global norm)."""
+    terms = max(abs(got["terms"][0][k] - v) / max(abs(v), 1e-12)
+                for k, v in want["terms"][0].items())
+    d, norm = (got["grads"] - want["grads"]).double(), float(want["grads"].double().norm())
+    s = want["slices"]
+    per = max(float(d[a:b].norm()) for a, b in zip(s[:-1], s[1:])) / norm
+    return {"terms": terms, "grads": per, "grads_all": float(d.norm()) / norm}
+
+
+def phase_ddp(torch, device, batch, smi: str, out_dir: str) -> None:
+    """Data parallelism on the card (see the module note, phase 15)."""
+    import pickle
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as tmp_mp
+
+    from hocon_torch.cli import trainwarp
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="ddp-", dir=out_dir)
+    here = os.getcwd()
+    try:
+        solo = ddp_steps(torch, batch, None, 0, 1, device)
+        with open(os.path.join(work, "batch.pkl"), "wb") as fh:
+            pickle.dump(batch, fh)
+        t0 = time.perf_counter()
+        rank_device = "cuda:0" if torch.device(device).type == "cuda" else "cpu"
+        tmp_mp.start_processes(_ddp_rank, args=(work, rank_device), nprocs=DDP_WORLD,
+                               start_method="spawn")
+        spawned = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+                 for r in range(DDP_WORLD)]
+        want = {k: DDP_STEPS for k in solo["launches"]}
+        launches = [r["launches"] for r in ranks]
+        same = (ranks[0]["terms"] == ranks[1]["terms"]
+                and all(torch.equal(ranks[0][k], ranks[1][k]) for k in ("grads", "params")))
+        err = ddp_errors(ranks[0], solo)
+        log(f"ddp: 2 ranks over gloo on {RES}^2, {PAIRS // DDP_WORLD} + {PAIRS // DDP_WORLD} "
+            f"pairs, {DDP_STEPS} steps: {ranks[0]['seconds']:.2f} / {ranks[1]['seconds']:.2f} s "
+            f"in the ranks (spawn to exit {spawned:.1f} s), one process on {PAIRS} pairs "
+            f"{solo['seconds']:.2f} s; launches per rank {launches}; ranks bit for bit equal: "
+            f"{same}; card {smi}")
+        log(f"ddp: step 1 against one process: terms within {err['terms']:.3g} (bar "
+            f"{DDP_BARS['terms']}), summed gradients within {err['grads']:.3g} per tensor and "
+            f"{err['grads_all']:.3g} over all of the global norm (bar {DDP_BARS['grads']}); "
+            f"loss {ranks[0]['terms'][0]['loss_total']:.4f} against "
+            f"{solo['terms'][0]['loss_total']:.4f}")
+        if launches != [want] * DDP_WORLD:
+            fail(f"ddp: ranks launched {launches}, want {want} each")
+        if not same:
+            fail("ddp: the ranks' terms, gradients or parameters differ")
+        if err["terms"] > DDP_BARS["terms"] or err["grads"] > DDP_BARS["grads"]:
+            fail(f"ddp: 2 ranks off one process's step: {err}, bars {DDP_BARS}")
+
+        runs = {}
+        argv = cli_argv(DDP_CLI_FLAGS)
+        for name in ("alone", "torchrun"):
+            os.makedirs(os.path.join(work, name))
+            os.chdir(os.path.join(work, name))
+            t0 = time.perf_counter()
+            if name == "alone":
+                _, text = run_cli(trainwarp.main, argv, device)
+            else:
+                r = subprocess.run(
+                    [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                     "--nproc_per_node", "1", "-m", "hocon_torch.cli.trainwarp", *argv],
+                    capture_output=True, text=True, timeout=600,
+                    env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                        p for p in (HERE, os.environ.get("PYTHONPATH")) if p)))
+                text = r.stdout
+                for line in text.splitlines():
+                    log(f"  | {line}")
+                if r.returncode != 0:
+                    fail(f"ddp: torchrun trainwarp exit {r.returncode}: {r.stderr[-3000:]}")
+            runs[name] = (time.perf_counter() - t0, text)
+            os.chdir(here)
+        states = [torch.load(os.path.join(work, name, "checkpoints", "ddp", "ckpt", "2",
+                                          "state.pt"), map_location="cpu", weights_only=False)
+                  for name in runs]
+        model_a, model_b = (s["model"] for s in states)
+        equal = model_a.keys() == model_b.keys() and all(
+            torch.equal(model_a[k], model_b[k]) for k in model_a)
+        nccl = "[hocon] data parallel over nccl: world size 1" in runs["torchrun"][1]
+        log(f"ddp: trainwarp 2 steps of {PAIRS} pairs at {RES}^2 without torchrun "
+            f"{runs['alone'][0]:.1f} s, under torchrun --nproc_per_node 1 over NCCL "
+            f"{runs['torchrun'][0]:.1f} s (its own process); NCCL group: {nccl}; weights after "
+            f"2 steps bit for bit equal: {equal} ({len(model_a)} tensors); card {smi}")
+        if not nccl or not equal:
+            fail("ddp: torchrun trainwarp over NCCL did not give the weights of the call "
+                 "without it")
+        log(f"ddp: the phase took {time.perf_counter() - t_phase:.1f} s; card {smi}")
+    finally:
+        os.chdir(here)
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def descendants(pid: int) -> dict:
     """The processes under ``pid`` (children, their children, ...), from
     ``/proc``: pid -> (name, state)."""
@@ -2159,6 +2348,7 @@ def run_phases(torch, out_dir: str) -> list:
     phase_real_data(torch, device, smi, out_dir)
     phase_workers(torch, device, smi, out_dir)
     phase_repro(torch, device, smi)
+    phase_ddp(torch, device, batch, smi, out_dir)
     for kern, name in ((k1, "raster_fwd"), (k1c3, "raster_fwd C=3"), (k2, "raster_bwd"),
                        (k3, "sample_fwd"), (k4, "sample_bwd")):
         kern["launches"] = cli[name]

@@ -8,7 +8,14 @@ periodic eval and snapshots under ``checkpoints/<exp_id>/``.
       --batch_size 8 --epochs 2 --use_objects
 
 ``main(argv, device=None)`` runs on CUDA (or raises without it); tests
-pass ``device="cpu"``.
+pass ``device="cpu"``. On N cards, one process per card:
+
+  torchrun --nproc_per_node N -m hocon_torch.cli.train ...
+
+Each rank trains on its shard of every ``--batch_size`` global batch
+(``hocon_torch.train.sharding``); rank 0 alone prints, saves the flags,
+metrics, images and checkpoints. Every rank restores. ``main(...,
+mesh=...)`` runs under a mesh the caller made (and tears down).
 """
 
 from __future__ import annotations
@@ -24,13 +31,13 @@ from hocon_torch.cli import opts
 from hocon_torch.data.check import check_dataset
 from hocon_torch.data.factory import get_dataset
 from hocon_torch.data.pipeline import BatchLoader, WorkerEpochLoader, WorkerEvalLoader
-from hocon_torch.device import resolve_device
 from hocon_torch.exp.args import save_args
 from hocon_torch.models.backbone import STAGE_SIZES as _IMPORT_STAGE_SIZES
 from hocon_torch.models.hocnet import HOCNet
 from hocon_torch.train.checkpoints import CheckpointManager, restore_for_warm_start
 from hocon_torch.train.loop import epoch_pass
 from hocon_torch.train.metrics import MetricWriter
+from hocon_torch.train.sharding import Mesh, process_mesh, replicate
 from hocon_torch.train.state import create_train_state, make_optimizer
 from hocon_torch.train.steps import make_eval_step, make_train_step
 
@@ -121,15 +128,18 @@ def obj_lambdas(args):
     )
 
 
-def setup_common(args, device: torch.device):
-    """MANO, the run directory (flags saved), its metric writer, and the
-    train and val loaders over datasets made on ``device``. With
-    ``--check_data``, checks both datasets instead and exits (code 1 if
-    either shows an anomaly)."""
+def setup_common(args, mesh: Mesh):
+    """MANO, the run directory (flags saved), its metric writer (None off
+    rank 0), and this rank's train and val loaders over datasets made on its
+    device. With ``--check_data``, checks both datasets instead and exits
+    (code 1 if either shows an anomaly)."""
+    device = mesh.device
     mano = opts.load_mano_or_synthetic(args.mano_assets, args.mano_side, device=device)
     run_dir = os.path.join("checkpoints", args.exp_id)
-    save_args(args, run_dir)
-    writer = MetricWriter(run_dir)
+    writer = None
+    if mesh.is_main:
+        save_args(args, run_dir)
+        writer = MetricWriter(run_dir)
 
     train_ds = get_dataset(
         args.dataset, args.split, args.data_root, args.image_size,
@@ -169,22 +179,24 @@ def setup_common(args, device: torch.device):
         n_bad = check_dataset(train_ds, args.split, max_seqs=args.check_data_seqs)
         n_bad += check_dataset(val_ds, args.val_split, max_seqs=args.check_data_seqs)
         raise SystemExit(1 if n_bad else 0)
+    shard = dict(shard_index=mesh.rank, shard_count=mesh.world)
     if args.workers > 0:
         train_loader = WorkerEpochLoader(train_ds, args.batch_size, seed=args.seed,
-                                         worker_count=args.workers)
+                                         worker_count=args.workers, **shard)
     else:
         train_loader = BatchLoader(train_ds, args.batch_size, seed=args.seed,
-                                   prefetch=args.prefetch)
+                                   prefetch=args.prefetch, **shard)
     # drop_last=False: validation scores every sample exactly once; the
     # tail's padding rows carry _valid = 0. With --workers > 0 the samples
     # are assembled in worker processes, into BatchLoader's exact batches.
-    val_loader = WorkerEvalLoader(val_ds, args.batch_size, worker_count=args.workers)
+    val_loader = WorkerEvalLoader(val_ds, args.batch_size, worker_count=args.workers, **shard)
     return mano, run_dir, writer, train_loader, val_loader
 
 
-def restore(args, state, run_dir: str):
-    """``--resume``, else the run's latest snapshot, else ``--warm_start``.
-    Returns (state, the run's checkpoint manager)."""
+def restore(args, state, run_dir: str, mesh: Mesh):
+    """``--resume``, else the run's latest snapshot, else ``--warm_start``
+    (on every rank), then rank 0's weights on every rank. Returns (state,
+    the run's checkpoint manager)."""
     ckpt = CheckpointManager(os.path.join(run_dir, "ckpt"))
     if args.resume:
         state = CheckpointManager(args.resume).restore(state)
@@ -195,6 +207,7 @@ def restore(args, state, run_dir: str):
     elif args.warm_start:
         state = restore_for_warm_start(args.warm_start, state)
         print(f"warm-started params from {args.warm_start}")
+    replicate(state.model, mesh)
     return state, ckpt
 
 
@@ -208,82 +221,87 @@ def _profiler(device: torch.device):
 
 
 def fit(args, state, train_step, eval_step, run_dir, writer, train_loader, val_loader,
-        ckpt, device, train_line, vis_fn=None, epoch_vis=None) -> object:
+        ckpt, mesh, train_line, vis_fn=None, epoch_vis=None) -> object:
     """The epoch loop: train, eval every ``--eval_freq`` epochs, snapshot
-    every ``--snapshot_freq``; ``train_line(metrics)`` formats the train
-    summary. ``--profile`` traces epoch 0 into ``<run_dir>/trace``. The
-    loaders are closed when it returns or raises.
+    every ``--snapshot_freq`` (rank 0); ``train_line(metrics)`` formats the
+    train summary. ``--profile`` traces rank 0's epoch 0 into
+    ``<run_dir>/trace``. The loaders are closed when it returns or raises.
 
     With ``--vis_freq N``: ``vis_fn(epoch, i, batch, preds)`` runs on every
     N-th batch of the eval pass (``epoch_pass``'s hook), and
     ``epoch_vis(epoch, state)`` after every N-th train pass."""
     max_steps = args.max_steps_per_epoch or None
+    device = mesh.device
     # Worker processes start with a loader's first epoch and stop here.
     with contextlib.closing(train_loader), contextlib.closing(val_loader):
         for epoch in range(args.epochs):
-            traced = args.profile and epoch == 0
+            traced = args.profile and epoch == 0 and mesh.is_main
             with _profiler(device) if traced else contextlib.nullcontext() as prof:
                 state, train_metrics = epoch_pass(
                     train_loader, state, train_step, train=True, epoch=epoch,
-                    device=device, writer=writer, max_steps=max_steps,
+                    writer=writer, max_steps=max_steps, mesh=mesh,
                 )
                 if traced and device.type == "cuda":
                     torch.cuda.synchronize(device)
             if traced:
                 os.makedirs(os.path.join(run_dir, "trace"), exist_ok=True)
                 prof.export_chrome_trace(os.path.join(run_dir, "trace", "epoch0.json"))
-            if epoch_vis is not None and args.vis_freq and (epoch + 1) % args.vis_freq == 0:
+            if (epoch_vis is not None and args.vis_freq and (epoch + 1) % args.vis_freq == 0
+                    and mesh.is_main):
                 epoch_vis(epoch, state)
             print(f"[epoch {epoch}] train {train_line(train_metrics)} "
                   f"({train_metrics['steps_per_sec']:.2f} steps/s)")
             if (epoch + 1) % args.eval_freq == 0:
                 _, val_metrics = epoch_pass(
                     val_loader, state, eval_step, train=False, epoch=epoch,
-                    device=device, writer=writer, max_steps=max_steps,
-                    vis_fn=vis_fn, vis_freq=args.vis_freq,
+                    writer=writer, max_steps=max_steps, vis_fn=vis_fn,
+                    vis_freq=args.vis_freq, mesh=mesh,
                 )
                 print(f"[epoch {epoch}] val MPJPE={val_metrics['mpjpe_mm']:.2f}mm "
                       f"AUC={val_metrics['auc']:.3f}")
-            if (epoch + 1) % args.snapshot_freq == 0:
+            if (epoch + 1) % args.snapshot_freq == 0 and mesh.is_main:
                 ckpt.save(state.step, state)
     ckpt.wait()
-    writer.plot_curves()
-    writer.close()
+    if writer is not None:
+        writer.plot_curves()
+        writer.close()
     return state
 
 
-def main(argv=None, device: str | torch.device | None = None):
+def main(argv=None, device: str | torch.device | None = None, mesh: Mesh | None = None):
     args = build_parser().parse_args(argv)
-    dev = resolve_device(device)
-    t0 = time.perf_counter()
+    with process_mesh(device, mesh) as mesh:
+        dev = mesh.device
+        t0 = time.perf_counter()
 
-    mano, run_dir, writer, train_loader, val_loader = setup_common(args, dev)
-    model = build_model(args, mano, dev, seed=args.seed)
-    optimizer = make_optimizer(
-        args.optimizer, args.lr, args.momentum, args.weight_decay,
-        args.lr_decay_step, args.lr_decay_gamma, args.grad_clip,
-    )
-    state = create_train_state(model, optimizer)
-    state = apply_torch_init(args, model, state)
-    state, ckpt = restore(args, state, run_dir)
+        mano, run_dir, writer, train_loader, val_loader = setup_common(args, mesh)
+        model = build_model(args, mano, dev, seed=args.seed)
+        optimizer = make_optimizer(
+            args.optimizer, args.lr, args.momentum, args.weight_decay,
+            args.lr_decay_step, args.lr_decay_gamma, args.grad_clip,
+        )
+        state = create_train_state(model, optimizer)
+        state = apply_torch_init(args, model, state)
+        state, ckpt = restore(args, state, run_dir, mesh)
 
-    train_step = make_train_step(
-        model, mano, optimizer, hand_lambdas(args), obj_lambdas(args), device=dev
-    )
-    eval_step = make_eval_step(model, mano, device=dev)
-    vis_fn = None
-    if args.vis_freq:
-        from hocon_torch.visualize.samplevis import sample_vis
+        train_step = make_train_step(
+            model, mano, optimizer, hand_lambdas(args), obj_lambdas(args), device=dev,
+            mesh=mesh,
+        )
+        eval_step = make_eval_step(model, mano, device=dev)
+        vis_fn = None
+        if args.vis_freq:
+            from hocon_torch.visualize.samplevis import sample_vis
 
-        def vis_fn(ep, i, batch, preds):
-            sample_vis(batch, preds, os.path.join(run_dir, "images", f"ep{ep}_b{i}.png"))
-    print(f"[hocon] set-up {time.perf_counter() - t0:.3f} s (data, model, restore)")
-    return fit(
-        args, state, train_step, eval_step, run_dir, writer, train_loader, val_loader,
-        ckpt, dev,
-        lambda m: f"loss={m.get('loss_total', float('nan')):.4f}",
-        vis_fn=vis_fn,
-    )
+            def vis_fn(ep, i, batch, preds):
+                sample_vis(batch, preds, os.path.join(run_dir, "images", f"ep{ep}_b{i}.png"))
+        print(f"[hocon] set-up {time.perf_counter() - t0:.3f} s (data, model, restore)")
+        return fit(
+            args, state, train_step, eval_step, run_dir, writer, train_loader, val_loader,
+            ckpt, mesh,
+            lambda m: f"loss={m.get('loss_total', float('nan')):.4f}",
+            vis_fn=vis_fn,
+        )
 
 
 if __name__ == "__main__":

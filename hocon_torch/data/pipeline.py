@@ -345,11 +345,14 @@ class WorkerEvalLoader(_WorkerLoader):
     order and ``_valid`` masks are ``BatchLoader``'s bit for bit (the tail
     padded by wrap-around, its padding rows at ``_valid`` 0), and only the
     per-sample work (decode, crop, augment) moves into the workers. Eval
-    metrics therefore do not depend on the worker count.
+    metrics therefore do not depend on the worker count. ``shard_index`` /
+    ``shard_count`` select this rank's shard of every global batch.
     """
 
-    def __init__(self, dataset, batch_size: int, worker_count: int = 0):
-        super().__init__(BatchLoader(dataset, batch_size, shuffle=False, drop_last=False),
+    def __init__(self, dataset, batch_size: int, worker_count: int = 0,
+                 shard_index: int = 0, shard_count: int = 1):
+        super().__init__(BatchLoader(dataset, batch_size, shuffle=False, drop_last=False,
+                                     shard_index=shard_index, shard_count=shard_count),
                          worker_count)
 
 
@@ -370,6 +373,8 @@ class WorkerEpochLoader(_WorkerLoader):
 
     train_only = True
 
-    def __init__(self, dataset, batch_size: int, seed: int = 0, worker_count: int = 0):
+    def __init__(self, dataset, batch_size: int, seed: int = 0, worker_count: int = 0,
+                 shard_index: int = 0, shard_count: int = 1):
         super().__init__(BatchLoader(dataset, batch_size, shuffle=True, seed=seed,
-                                     drop_last=True), worker_count)
+                                     drop_last=True, shard_index=shard_index,
+                                     shard_count=shard_count), worker_count)

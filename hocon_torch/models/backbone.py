@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from hocon_torch.train.sharding import global_mean
+
 STAGE_SIZES = {
     "resnet18": (2, 2, 2, 2),
     "resnet34": (3, 4, 6, 3),
@@ -40,7 +42,12 @@ class BatchNorm2d(nn.Module):
 
     - mean E[x] and the *biased* variance E[x^2] - E[x]^2, clipped at 0,
       both reduced in f32 even when the trunk runs in bf16 autocast;
-    - running = 0.9 * running + 0.1 * batch, under no gradient.
+    - running = 0.9 * running + 0.1 * batch, under no gradient;
+    - under a data-parallel ``mesh`` (set by ``sharding.replicate``) both
+      moments are averaged over the ranks by a differentiable all-reduce:
+      the statistics of the global batch, as Flax computes them under
+      ``hocon``'s data mesh, forward and backward, and the same running
+      statistics on every rank. ``nn.SyncBatchNorm`` refuses CPU tensors.
 
     ``F.batch_norm(training=True)`` would update ``running_var`` with the
     unbiased variance (16/15 of the biased one over the 2 x 2 x 4 values of
@@ -61,6 +68,7 @@ class BatchNorm2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self.mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.frozen or not self.training:
@@ -69,8 +77,9 @@ class BatchNorm2d(nn.Module):
                 training=False, eps=BN_EPS,
             )
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        moments = torch.stack([xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))])
+        mean, mean_sq = global_mean(moments, self.mesh).unbind()
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
         with torch.no_grad():
             m = self.MOMENTUM
             self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)

@@ -2,6 +2,8 @@
 
 Port of ``hocon/render/ssim.py``: the separable Gaussian window runs as two
 banded-matrix products, which reproduce a zero-padded SAME convolution.
+Under a data-parallel ``mesh`` the masked DSSIM is this rank's share of the
+global batch's (``hocon_torch.train.sharding``).
 """
 
 from __future__ import annotations
@@ -10,6 +12,8 @@ import functools
 
 import numpy as np
 import torch
+
+from hocon_torch.train.sharding import Mesh, batch_mean, global_sum
 
 _C1 = 0.01**2
 _C2 = 0.03**2
@@ -67,9 +71,10 @@ def ssim_loss(
     img_b: torch.Tensor,
     mask: torch.Tensor | None = None,
     window_size: int = 11,
+    mesh: Mesh | None = None,
 ) -> torch.Tensor:
     """Masked DSSIM: mean over masked pixels of (1 - SSIM) / 2."""
     d = (1.0 - ssim(img_a, img_b, window_size=window_size)) * 0.5
     if mask is None:
-        return torch.mean(d)
-    return torch.sum(d * mask) / (torch.sum(mask) + 1e-6)
+        return batch_mean(d, mesh)
+    return torch.sum(d * mask) / (global_sum(torch.sum(mask), mesh) + 1e-6)

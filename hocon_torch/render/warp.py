@@ -15,6 +15,7 @@ from hocon_torch.geometry.project import persp_project
 from hocon_torch.render.raster import RasterOutput, soft_rasterize
 from hocon_torch.render.sample_cuda import BilinearSample, sample_fwd_plain
 from hocon_torch.render.ssim import ssim_loss
+from hocon_torch.train.sharding import Mesh, global_sum
 
 
 def bilinear_sample(
@@ -78,16 +79,19 @@ def photometric_loss(
     lambda_ssim: float = 0.85,
     lambda_l1: float = 0.15,
     window_size: int = 11,
+    mesh: Mesh | None = None,
 ) -> tuple[torch.Tensor, dict]:
     """Masked SSIM + L1 between (B, H, W, C) images in [0, 1].
 
     The (B, H, W) mask weights the loss and carries no gradient, or the
-    loss would be minimised by shrinking the mesh out of the frame.
+    loss would be minimised by shrinking the mesh out of the frame. Under a
+    data-parallel ``mesh`` both terms are this rank's shares of the global
+    batch's, normalised by the global mask sum.
     """
     mask = mask.detach()
-    msum = torch.sum(mask) + 1e-6
+    msum = global_sum(torch.sum(mask), mesh) + 1e-6
     l1_map = torch.mean(torch.abs(warped - target), dim=-1)
     l1 = torch.sum(l1_map * mask) / msum
-    dssim = ssim_loss(warped, target, mask=mask, window_size=window_size)
+    dssim = ssim_loss(warped, target, mask=mask, window_size=window_size, mesh=mesh)
     loss = lambda_ssim * dssim + lambda_l1 * l1
     return loss, {"photo_l1": l1, "photo_dssim": dssim, "photo_total": loss}

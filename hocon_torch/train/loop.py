@@ -2,9 +2,12 @@
 
 Port of ``hocon/train/loop.py``: iterate the loader, run the step on each
 batch, keep running means of every loss term, and in eval mode feed
-``EvalUtil`` and the object vertex / corner meters. ``device`` takes the
-place of the reference's ``mesh``: each batch goes onto it with
-``steps.batch_to_device`` (``shard_batch`` on one device).
+``EvalUtil`` and the object vertex / corner meters. Each batch goes onto
+``device`` with ``steps.batch_to_device``, or with a data-parallel ``mesh``
+onto the rank's device (``sharding.shard_batch``, as the reference's
+``mesh``). Under a mesh the train terms come out of the step already summed
+over the ranks, and an eval pass gathers each batch's scored rows in shard
+order, so every rank's metrics are the global batch's.
 
 The host never waits on the card per step. Train terms stay on the device
 and are fetched in one transfer per ``METRIC_SYNC_STEPS`` steps; eval runs
@@ -22,9 +25,13 @@ import torch
 from hocon_torch.device import resolve_device
 from hocon_torch.evaluation.zimeval import EvalUtil, VertexErrorMeter
 from hocon_torch.train.metrics import AverageMeters, StepTimer
+from hocon_torch.train.sharding import Mesh, gather_rows, shard_batch
 from hocon_torch.train.steps import batch_to_device
 
 METRIC_SYNC_STEPS = 20
+# What an eval pass scores: batch fields and predictions gathered over a mesh.
+SCORED_FIELDS = ("joints3d", "_valid", "objverts3d", "obj_verts_mask", "objcorners3d")
+SCORED_PREDS = ("joints_c_mm", "obj_verts_c_mm", "obj_corners_c_mm")
 
 
 def _host(x) -> np.ndarray:
@@ -59,12 +66,15 @@ def epoch_pass(
     vis_fn: Optional[Callable] = None,
     vis_freq: int = 0,
     pck_thresholds: Sequence[float] = (15.0, 30.0, 45.0),
+    mesh: Optional[Mesh] = None,
 ) -> tuple:
-    """Run one epoch on ``device`` (CUDA when None). Returns (state, metrics).
+    """Run one epoch on ``device`` (CUDA when None), or on the rank's device
+    of a data-parallel ``mesh``. Returns (state, metrics).
 
     In train mode ``step_fn(state, batch) -> (state, terms)``.
     In eval mode ``step_fn(state, batch) -> preds`` and MPJPE / AUC / PCK /
-    object vertex and corner errors are accumulated on the host.
+    object vertex and corner errors are accumulated on the host; ``vis_fn``
+    runs on rank 0's shard.
     """
     if not train and getattr(loader, "train_only", False):
         raise ValueError(
@@ -72,7 +82,7 @@ def epoch_pass(
             "and carries no _valid masks); evaluation must use BatchLoader "
             "so every sample is scored exactly once."
         )
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     meters = AverageMeters()
     timer = StepTimer()
     evaluator = EvalUtil() if not train else None
@@ -98,6 +108,15 @@ def epoch_pass(
 
     def score_eval(i, batch, preds):
         preds = {k: _host(v) for k, v in preds.items()}
+        if vis_fn is not None and vis_freq and i % vis_freq == 0 and (
+                mesh is None or mesh.is_main):
+            vis_fn(epoch, i, batch, preds)
+        if mesh is not None and mesh.world > 1:
+            rows = gather_rows({**{k: np.asarray(batch[k]) for k in SCORED_FIELDS if k in batch},
+                                **{f"pred/{k}": preds[k] for k in SCORED_PREDS if k in preds}},
+                               mesh)
+            batch = {k: v for k, v in rows.items() if not k.startswith("pred/")}
+            preds = {k[len("pred/"):]: v for k, v in rows.items() if k.startswith("pred/")}
         gt_j = np.asarray(batch["joints3d"])
         # Wrap-around padding rows (drop_last=False) carry _valid == 0 and
         # must not bias the metrics.
@@ -123,13 +142,11 @@ def epoch_pass(
                 np.asarray(batch["objcorners3d"])[keep],
                 preds["obj_corners_c_mm"][keep],
             )
-        if vis_fn is not None and vis_freq and i % vis_freq == 0:
-            vis_fn(epoch, i, batch, preds)
 
     for i, batch in enumerate(loader.epoch(epoch)):
         if max_steps is not None and i >= max_steps:
             break
-        dev_batch = batch_to_device(batch, dev)
+        dev_batch = shard_batch(batch, mesh) if mesh is not None else batch_to_device(batch, dev)
         if train:
             if step_base is None:
                 step_base = int(state.step) + 1

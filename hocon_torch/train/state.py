@@ -9,7 +9,9 @@ torch's fused AdamW with optax's bias corrections) and sgd with momentum
 (``torch.optim.SGD``, the same trace as optax's), a staircase step decay
 whose first update uses ``lr``, and global-norm clipping of the gradients before the update
 (``optax.clip_by_global_norm``: scaled by max_norm / norm only when the
-norm reaches max_norm, with no epsilon).
+norm reaches max_norm, with no epsilon). Under a data-parallel mesh the
+ranks' gradients are summed first, so the norm, the clip and the update
+are the global batch's, the same on every rank.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from typing import Iterable
 import numpy as np
 import torch
 from torch import nn
+
+from hocon_torch.train.sharding import Mesh, reduce_gradients
 
 
 class OptaxAdam(torch.optim.AdamW):
@@ -143,16 +147,18 @@ def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply_gradients(state: TrainState) -> torch.Tensor:
-    """Clip the gradients the parameters hold, step optimizer and schedule,
-    count the update. Returns the global norm of the gradients before
-    clipping. A parameter the loss did not reach gets a zero gradient, as
-    JAX gives it, so its optimizer state advances as optax's does."""
+def apply_gradients(state: TrainState, mesh: Mesh | None = None) -> torch.Tensor:
+    """Sum the gradients the parameters hold over the ``mesh``'s ranks, clip
+    them, step optimizer and schedule, count the update. Returns the global
+    norm of the gradients before clipping. A parameter the loss did not
+    reach gets a zero gradient, as JAX gives it, so its optimizer state
+    advances as optax's does."""
     params = list(state.model.parameters())
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     grads = [p.grad for p in params]
+    reduce_gradients(grads, mesh)
     norm = global_norm(grads)
     if state.grad_clip > 0:
         # Decided on the device: no host sync inside the step.

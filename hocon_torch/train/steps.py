@@ -17,6 +17,12 @@ step's from the joint [ref; tgt] batch) and updates its running ones;
 ``warp_loss`` alone and ``eval_step`` run in eval mode, on the running
 statistics, and restore the mode they found. With the default frozen batch
 norm both modes compute the same.
+
+Under a data-parallel ``mesh`` (``hocon_torch.train.sharding``) the batch
+is this rank's shard of a global batch: each loss term is the rank's share
+of the global term, the logged terms are summed over the ranks and the
+gradients are summed before the update, so every rank takes one process's
+step on the global batch.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from hocon_torch.geometry.project import persp_project, transform_points
 from hocon_torch.models.losses import total_supervised_loss
 from hocon_torch.render.raster import soft_rasterize
 from hocon_torch.render.warp import WarpOutput, bilinear_sample, photometric_loss
+from hocon_torch.train.sharding import Mesh, batch_mean, reduce_terms
 from hocon_torch.train.state import OptimizerSpec, TrainState, apply_gradients
 
 
@@ -133,13 +140,15 @@ def warp_loss(
     backface_cull: bool = True,
     device: str | torch.device | None = None,
     train: bool = False,
+    mesh: Mesh | None = None,
 ) -> tuple[torch.Tensor, dict]:
     """Photometric-consistency loss of a {"ref", "tgt"} pair batch.
 
     Returns ``(total, terms)`` with the reference's term names. k-frame
     clips (tgt leaves shaped (B, K-1, ...)) fold the targets into the batch.
     ``train`` runs the model in training mode (the train step's forward),
-    else in eval mode; the model's mode is restored after.
+    else in eval mode; the model's mode is restored after. Under ``mesh``
+    the loss and terms are this rank's shares of the global batch's.
     """
     dev = resolve_device(device)
     batch = batch_to_device(batch, dev)
@@ -172,11 +181,11 @@ def warp_loss(
 
     sup_ref, terms_ref = total_supervised_loss(
         out_ref, _gt_from_batch(ref), ref["sup_mask"],
-        hand_lambdas=hand_lambdas, obj_lambdas=obj_lambdas,
+        hand_lambdas=hand_lambdas, obj_lambdas=obj_lambdas, mesh=mesh,
     )
     sup_tgt, _ = total_supervised_loss(
         out_tgt, _gt_from_batch(tgt), tgt["sup_mask"],
-        hand_lambdas=hand_lambdas, obj_lambdas=obj_lambdas,
+        hand_lambdas=hand_lambdas, obj_lambdas=obj_lambdas, mesh=mesh,
     )
 
     # Render each target view carrying reference-frame pixel coordinates,
@@ -195,24 +204,26 @@ def warp_loss(
         d = photo_downscale
         coords, mask, tgt_img = _avg_pool(coords, d), _avg_pool(mask, d), _avg_pool(tgt_img, d)
     warped = bilinear_sample(tile(_unnormalize(ref["image"])), coords)
-    photo, photo_terms = photometric_loss(warped, tgt_img, mask)
+    photo, photo_terms = photometric_loss(warped, tgt_img, mask, mesh=mesh)
     warp_out = WarpOutput(warped=warped, mask=mask, raster=raster)
 
     total = sup_ref + sup_tgt + lambda_consist * photo
     terms = {f"ref_{k}": v for k, v in terms_ref.items()}
     terms.update(photo_terms)
     terms["loss_total"] = total
-    terms["mask_area"] = torch.mean(torch.sum(warp_out.mask, dim=(1, 2)))
+    terms["mask_area"] = batch_mean(torch.sum(warp_out.mask, dim=(1, 2)), mesh)
     return total, terms
 
 
-def _update(state: TrainState, loss: torch.Tensor, terms: dict) -> tuple[TrainState, dict]:
-    """Backward, clip, optimizer and schedule step; terms gain ``grad_norm``
-    (the gradients' global norm before clipping)."""
+def _update(state: TrainState, loss: torch.Tensor, terms: dict,
+            mesh: Mesh | None = None) -> tuple[TrainState, dict]:
+    """Backward, clip, optimizer and schedule step; the terms, summed over
+    the ``mesh``'s ranks, gain ``grad_norm`` (the gradients' global norm
+    before clipping)."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
-    terms = {k: v.detach() for k, v in terms.items()}
-    terms["grad_norm"] = apply_gradients(state)
+    terms = reduce_terms({k: v.detach() for k, v in terms.items()}, mesh)
+    terms["grad_norm"] = apply_gradients(state, mesh)
     return state, terms
 
 
@@ -228,11 +239,13 @@ def make_train_step(
     hand_lambdas: dict | None = None,
     obj_lambdas: dict | None = None,
     device: str | torch.device | None = None,
+    mesh: Mesh | None = None,
 ) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
     """Supervised train step: (state, batch) -> (state, terms).
 
     ``state`` is ``create_train_state(model, optimizer)``; it is updated in
-    place and returned, as the reference returns its new state.
+    place and returned, as the reference returns its new state. Under
+    ``mesh`` the batch is this rank's shard of the global batch.
     """
     dev = resolve_device(device)
 
@@ -244,9 +257,9 @@ def make_train_step(
                     batch.get("obj_verts_can"))
         loss, terms = total_supervised_loss(
             out, _gt_from_batch(batch), batch["sup_mask"],
-            hand_lambdas=hand_lambdas, obj_lambdas=obj_lambdas,
+            hand_lambdas=hand_lambdas, obj_lambdas=obj_lambdas, mesh=mesh,
         )
-        return _update(state, loss, terms)
+        return _update(state, loss, terms, mesh)
 
     return step
 
@@ -266,10 +279,12 @@ def make_warp_train_step(
     photo_downscale: int = 1,
     backface_cull: bool = True,
     device: str | torch.device | None = None,
+    mesh: Mesh | None = None,
 ) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
     """Frame-pair photometric-consistency train step: ``warp_loss``, its
     backward (K2 / K4 under the raster and the sampler), then the update.
-    Returns (state, terms) with the reference's term names."""
+    Returns (state, terms) with the reference's term names. Under ``mesh``
+    the batch is this rank's shard of the global batch."""
     dev = resolve_device(device)
 
     def step(state: TrainState, batch: dict):
@@ -280,9 +295,9 @@ def make_warp_train_step(
             obj_lambdas=obj_lambdas, lambda_consist=lambda_consist,
             consist_gt_refs=consist_gt_refs, sigma=sigma, gamma=gamma,
             backend=backend, photo_downscale=photo_downscale,
-            backface_cull=backface_cull, device=dev, train=True,
+            backface_cull=backface_cull, device=dev, train=True, mesh=mesh,
         )
-        return _update(state, loss, terms)
+        return _update(state, loss, terms, mesh)
 
     return step
 
