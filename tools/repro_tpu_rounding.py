@@ -43,7 +43,7 @@ forward is called once); each active group must be called in every warp
 step, G1 and G2 also in every supervised and eval step. A step that breaks
 this stops the run.
 
-    python -u tools/repro_tpu_rounding.py [SEED ...] [--groups G1 G2 G3 G4]
+    python -u tools/repro_tpu_rounding.py [SEED ...] [--groups [G1 G2 G3 G4]]
         [--obj_faces N] [--frames 16] [--fraction 0.125]
     python tools/repro_tpu_rounding.py --summary LOG [LOG ...]
 
@@ -341,7 +341,7 @@ def summary(paths) -> list:
     tpu, port = _records(TPU_LOGS, box), _records([PORT_LOG], box)
     lines = []
     for groups, runs in sorted(_records(paths).items()):
-        name = "+".join(groups)
+        name = "+".join(groups) or "none"
         lines.append(f"rounding {name}: per seed, unannotated MPJPE (mm) baseline / control / "
                      "warp / gain; TPU record; port unrounded")
         rows = []
@@ -381,7 +381,9 @@ def summary(paths) -> list:
 def main(argv=None, device=None) -> int:
     ap = argparse.ArgumentParser("repro_tpu_rounding")
     ap.add_argument("seeds", nargs="*", type=int)
-    ap.add_argument("--groups", nargs="+", default=list(GROUPS), choices=GROUPS)
+    ap.add_argument("--groups", nargs="*", default=list(GROUPS), choices=GROUPS,
+                    help="groups to round; none (a bare --groups) runs the port unrounded, "
+                         "its kernels' counters still read around every step")
     ap.add_argument("--obj_faces", type=int, default=0)
     ap.add_argument("--frames", type=int, default=16)
     ap.add_argument("--fraction", type=float, default=repro.FRACTION)
