@@ -20,6 +20,7 @@ from hocon_torch.models.backbone import (
     resnet50,
 )
 from hocon_torch.models.heads import MLP, AbsoluteHead, ManoHead, ObjPoseHead
+from hocon_torch.utils.trace import span
 
 _BACKBONES = {"resnet18": resnet18, "resnet34": resnet34, "resnet50": resnet50}
 
@@ -89,36 +90,42 @@ class HOCNet(nn.Module):
         mano: ManoModel,
         obj_verts_can: torch.Tensor | None = None,  # (B, Vo, 3) meters
     ) -> dict:
-        feats = self.trunk(images)
-        pose_pca, betas, root_rot = self.mano_head(feats)
-        trans = self.absolute_head(feats)
-        verts_m, joints_m = mano_forward(
-            mano, pose_pca, betas, root_rot, scale_mm=False
-        )
-        verts_cam = verts_m + trans[:, None]
-        joints_cam = joints_m + trans[:, None]
-        center = joints_cam[:, self.center_idx : self.center_idx + 1]
-        out = {
-            "pose_pca": pose_pca,
-            "betas": betas,
-            "root_rot": root_rot,
-            "trans": trans,
-            "verts_cam": verts_cam,
-            "joints_cam": joints_cam,
-            "verts_c_mm": (verts_cam - center) * 1000.0,
-            "joints_c_mm": (joints_cam - center) * 1000.0,
-            "joints2d": persp_project(joints_cam, camintr),
-            "verts2d": persp_project(verts_cam, camintr),
-            "center_cam": center,
-        }
-        if self.obj_head is not None and obj_verts_can is not None:
-            obj_rot, obj_trans = self.obj_head(feats)
-            obj_cam = transform_points(obj_verts_can, obj_rot, obj_trans)
-            out.update(
-                obj_rot=obj_rot,
-                obj_trans=obj_trans,
-                obj_verts_cam=obj_cam,
-                obj_verts_c_mm=(obj_cam - center) * 1000.0,
-                obj_verts2d=persp_project(obj_cam, camintr),
+        # Spans: the trunk; MANO's forward; the heads and everything else
+        # around it (two ranges of one name).
+        with span("model.trunk"):
+            feats = self.trunk(images)
+        with span("model.heads"):
+            pose_pca, betas, root_rot = self.mano_head(feats)
+            trans = self.absolute_head(feats)
+        with span("model.mano"):
+            verts_m, joints_m = mano_forward(
+                mano, pose_pca, betas, root_rot, scale_mm=False
             )
+        with span("model.heads"):
+            verts_cam = verts_m + trans[:, None]
+            joints_cam = joints_m + trans[:, None]
+            center = joints_cam[:, self.center_idx : self.center_idx + 1]
+            out = {
+                "pose_pca": pose_pca,
+                "betas": betas,
+                "root_rot": root_rot,
+                "trans": trans,
+                "verts_cam": verts_cam,
+                "joints_cam": joints_cam,
+                "verts_c_mm": (verts_cam - center) * 1000.0,
+                "joints_c_mm": (joints_cam - center) * 1000.0,
+                "joints2d": persp_project(joints_cam, camintr),
+                "verts2d": persp_project(verts_cam, camintr),
+                "center_cam": center,
+            }
+            if self.obj_head is not None and obj_verts_can is not None:
+                obj_rot, obj_trans = self.obj_head(feats)
+                obj_cam = transform_points(obj_verts_can, obj_rot, obj_trans)
+                out.update(
+                    obj_rot=obj_rot,
+                    obj_trans=obj_trans,
+                    obj_verts_cam=obj_cam,
+                    obj_verts_c_mm=(obj_cam - center) * 1000.0,
+                    obj_verts2d=persp_project(obj_cam, camintr),
+                )
         return out

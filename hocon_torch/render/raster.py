@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from hocon_torch.utils.trace import span
+
 _DEGENERATE_EPS = 1e-12
 _AREA_EPS = 1e-6  # faces with |2 * area| at or below this (px^2) are culled
 N_GEOM_ROWS = 10  # s(3) + u(3) + L(3) + zbar(1)
@@ -292,26 +294,30 @@ def soft_rasterize(
     """
     if backend not in BACKENDS:
         raise ValueError(f"soft_rasterize backend {backend!r}: expected one of {BACKENDS}")
-    if attrs is None:
-        attrs = verts_pix.new_zeros(verts_pix.shape[:2] + (0,))
-    zbar = normalize_depth(verts_z)
-    if backend == "xla":
-        planes = face_planes(verts_pix, zbar, faces, attrs, backface_cull=backface_cull)
-        return rasterize_planes_xla(planes, image_size, sigma, gamma)
-
     from hocon_torch.render.raster_cuda import (
         default_config,
         rasterize_planes,
         sort_faces_by_y,
     )
 
-    # Sort the integer faces by screen y first, so the plane rows are built
-    # already in kernel order and nothing differentiable is permuted.
-    faces_sorted, face_bbox = sort_faces_by_y(
-        verts_pix, faces, backface_cull=backface_cull
-    )
-    planes = face_planes(verts_pix, zbar, faces_sorted, attrs,
-                         backface_cull=backface_cull)
+    with span("render.prep"):
+        if attrs is None:
+            attrs = verts_pix.new_zeros(verts_pix.shape[:2] + (0,))
+        zbar = normalize_depth(verts_z)
+        if backend == "xla":
+            planes = face_planes(verts_pix, zbar, faces, attrs, backface_cull=backface_cull)
+        else:
+            # Sort the integer faces by screen y first, so the plane rows are
+            # built already in kernel order and nothing differentiable is
+            # permuted.
+            faces_sorted, face_bbox = sort_faces_by_y(
+                verts_pix, faces, backface_cull=backface_cull
+            )
+            planes = face_planes(verts_pix, zbar, faces_sorted, attrs,
+                                 backface_cull=backface_cull)
+    if backend == "xla":
+        with span("render.raster"):
+            return rasterize_planes_xla(planes, image_size, sigma, gamma)
     return rasterize_planes(
         planes, face_bbox, image_size=image_size, sigma=sigma, gamma=gamma,
         config=default_config(),

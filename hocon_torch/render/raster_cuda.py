@@ -40,6 +40,7 @@ from hocon_torch.render.raster import (
     face_valid,
     gather_faces,
 )
+from hocon_torch.utils.trace import span
 
 FACE_CHUNK = 32  # faces per culling chunk
 ROW_BLOCK = 8  # rows per chunk-range entry
@@ -817,11 +818,14 @@ def rasterize_planes(
     K1 (forward) and K2 (backward)."""
     config = config or default_config()
     n_attr = planes.rows.shape[2] - (N_GEOM_ROWS - 1)  # user attrs + depth
-    coeffs, bounds = pack_sorted_planes(planes, face_bbox, sigma, config.face_chunk)
-    sil, attr, vis = RasterizeSorted.apply(coeffs, bounds, image_size, sigma, gamma, config)
-    return RasterOutput(
-        sil=sil,
-        attr=attr[:, : n_attr - 1].permute(0, 2, 3, 1),
-        depth=attr[:, n_attr - 1],
-        vis=vis,
-    )
+    with span("render.prep"):
+        coeffs, bounds = pack_sorted_planes(planes, face_bbox, sigma, config.face_chunk)
+    with span("render.raster"):
+        sil, attr, vis = RasterizeSorted.apply(coeffs, bounds, image_size, sigma, gamma,
+                                               config)
+        return RasterOutput(
+            sil=sil,
+            attr=attr[:, : n_attr - 1].permute(0, 2, 3, 1),
+            depth=attr[:, n_attr - 1],
+            vis=vis,
+        )

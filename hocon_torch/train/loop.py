@@ -27,6 +27,7 @@ from hocon_torch.evaluation.zimeval import EvalUtil, VertexErrorMeter
 from hocon_torch.train.metrics import AverageMeters, StepTimer
 from hocon_torch.train.sharding import Mesh, gather_rows, shard_batch
 from hocon_torch.train.steps import batch_to_device
+from hocon_torch.utils.trace import span
 
 METRIC_SYNC_STEPS = 20
 # What an eval pass scores: batch fields and predictions gathered over a mesh.
@@ -52,6 +53,17 @@ def fetch_terms(pending: list) -> list:
     for (i, k, _), v in zip(flat, values):
         out[i][k] = v
     return out
+
+
+def _waited(batches):
+    """``batches`` with each wait for the next one in a ``data.wait`` span."""
+    batches, end = iter(batches), object()
+    while True:
+        with span("data.wait"):
+            batch = next(batches, end)
+        if batch is end:
+            return
+        yield batch
 
 
 def epoch_pass(
@@ -143,10 +155,12 @@ def epoch_pass(
                 preds["obj_corners_c_mm"][keep],
             )
 
-    for i, batch in enumerate(loader.epoch(epoch)):
+    for i, batch in enumerate(_waited(loader.epoch(epoch))):
         if max_steps is not None and i >= max_steps:
             break
-        dev_batch = shard_batch(batch, mesh) if mesh is not None else batch_to_device(batch, dev)
+        with span("data.to_device"):
+            dev_batch = (shard_batch(batch, mesh) if mesh is not None
+                         else batch_to_device(batch, dev))
         if train:
             if step_base is None:
                 step_base = int(state.step) + 1

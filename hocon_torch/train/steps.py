@@ -42,6 +42,7 @@ from hocon_torch.render.raster import soft_rasterize
 from hocon_torch.render.warp import WarpOutput, bilinear_sample, photometric_loss
 from hocon_torch.train.sharding import Mesh, batch_mean, reduce_terms
 from hocon_torch.train.state import OptimizerSpec, TrainState, apply_gradients
+from hocon_torch.utils.trace import span
 
 
 def batch_to_device(batch: dict, device: torch.device) -> dict:
@@ -151,24 +152,25 @@ def warp_loss(
     the loss and terms are this rank's shares of the global batch's.
     """
     dev = resolve_device(device)
-    batch = batch_to_device(batch, dev)
-    ref, tgt = dict(batch["ref"]), dict(batch["tgt"])
-    ref["image"] = _device_images(ref["image"])
-    tgt["image"] = _device_images(tgt["image"])
-    b = ref["image"].shape[0]
-    if tgt["image"].dim() == 5:
-        k1 = tgt["image"].shape[1]
-        tgt = {k: v.reshape((b * k1,) + v.shape[2:]) for k, v in tgt.items()}
+    with span("step.inputs"):
+        batch = batch_to_device(batch, dev)
+        ref, tgt = dict(batch["ref"]), dict(batch["tgt"])
+        ref["image"] = _device_images(ref["image"])
+        tgt["image"] = _device_images(tgt["image"])
+        b = ref["image"].shape[0]
+        if tgt["image"].dim() == 5:
+            k1 = tgt["image"].shape[1]
+            tgt = {k: v.reshape((b * k1,) + v.shape[2:]) for k, v in tgt.items()}
 
-        def tile(x):
-            return x.repeat_interleave(k1, dim=0)
-    else:
-        def tile(x):
-            return x
+            def tile(x):
+                return x.repeat_interleave(k1, dim=0)
+        else:
+            def tile(x):
+                return x
 
-    obj = None
-    if "obj_verts_can" in ref:
-        obj = torch.cat([ref["obj_verts_can"], tgt["obj_verts_can"]])
+        obj = None
+        if "obj_verts_can" in ref:
+            obj = torch.cat([ref["obj_verts_can"], tgt["obj_verts_can"]])
     with _mode(model, train):
         out = model(
             torch.cat([ref["image"], tgt["image"]]),
@@ -179,39 +181,45 @@ def warp_loss(
     out_ref = {k: v[:b] for k, v in out.items()}
     out_tgt = {k: v[b:] for k, v in out.items()}
 
-    sup_ref, terms_ref = total_supervised_loss(
-        out_ref, _gt_from_batch(ref), ref["sup_mask"],
-        hand_lambdas=hand_lambdas, obj_lambdas=obj_lambdas, mesh=mesh,
-    )
-    sup_tgt, _ = total_supervised_loss(
-        out_tgt, _gt_from_batch(tgt), tgt["sup_mask"],
-        hand_lambdas=hand_lambdas, obj_lambdas=obj_lambdas, mesh=mesh,
-    )
+    with span("loss.supervised"):
+        sup_ref, terms_ref = total_supervised_loss(
+            out_ref, _gt_from_batch(ref), ref["sup_mask"],
+            hand_lambdas=hand_lambdas, obj_lambdas=obj_lambdas, mesh=mesh,
+        )
+        sup_tgt, _ = total_supervised_loss(
+            out_tgt, _gt_from_batch(tgt), tgt["sup_mask"],
+            hand_lambdas=hand_lambdas, obj_lambdas=obj_lambdas, mesh=mesh,
+        )
 
     # Render each target view carrying reference-frame pixel coordinates,
     # warp the reference image there, compare with the target image.
-    verts_tgt, faces = _combined_mesh(out_tgt, tgt, mano, use_gt_hand=False)
-    verts_ref, _ = _combined_mesh(out_ref, ref, mano, use_gt_hand=consist_gt_refs)
-    tgt_pix = persp_project(verts_tgt, tgt["camintr"])
-    ref_pix = persp_project(tile(verts_ref), tile(ref["camintr"]))
+    with span("render.prep"):
+        verts_tgt, faces = _combined_mesh(out_tgt, tgt, mano, use_gt_hand=False)
+        verts_ref, _ = _combined_mesh(out_ref, ref, mano, use_gt_hand=consist_gt_refs)
+        tgt_pix = persp_project(verts_tgt, tgt["camintr"])
+        ref_pix = persp_project(tile(verts_ref), tile(ref["camintr"]))
     raster = soft_rasterize(
         tgt_pix, verts_tgt[..., 2], faces, attrs=ref_pix, image_size=image_size,
         sigma=sigma, gamma=gamma, backend=backend, backface_cull=backface_cull,
     )
-    coords, mask = raster.attr, raster.sil * raster.vis
-    tgt_img = _unnormalize(tgt["image"])
-    if photo_downscale > 1:
-        d = photo_downscale
-        coords, mask, tgt_img = _avg_pool(coords, d), _avg_pool(mask, d), _avg_pool(tgt_img, d)
-    warped = bilinear_sample(tile(_unnormalize(ref["image"])), coords)
-    photo, photo_terms = photometric_loss(warped, tgt_img, mask, mesh=mesh)
-    warp_out = WarpOutput(warped=warped, mask=mask, raster=raster)
+    with span("render.sample"):
+        coords, mask = raster.attr, raster.sil * raster.vis
+        tgt_img = _unnormalize(tgt["image"])
+        if photo_downscale > 1:
+            d = photo_downscale
+            coords, mask, tgt_img = (_avg_pool(coords, d), _avg_pool(mask, d),
+                                     _avg_pool(tgt_img, d))
+        warped = bilinear_sample(tile(_unnormalize(ref["image"])), coords)
+    with span("render.photo"):
+        photo, photo_terms = photometric_loss(warped, tgt_img, mask, mesh=mesh)
+        warp_out = WarpOutput(warped=warped, mask=mask, raster=raster)
+        mask_area = batch_mean(torch.sum(warp_out.mask, dim=(1, 2)), mesh)
 
     total = sup_ref + sup_tgt + lambda_consist * photo
     terms = {f"ref_{k}": v for k, v in terms_ref.items()}
     terms.update(photo_terms)
     terms["loss_total"] = total
-    terms["mask_area"] = batch_mean(torch.sum(warp_out.mask, dim=(1, 2)), mesh)
+    terms["mask_area"] = mask_area
     return total, terms
 
 
@@ -220,10 +228,12 @@ def _update(state: TrainState, loss: torch.Tensor, terms: dict,
     """Backward, clip, optimizer and schedule step; the terms, summed over
     the ``mesh``'s ranks, gain ``grad_norm`` (the gradients' global norm
     before clipping)."""
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    terms = reduce_terms({k: v.detach() for k, v in terms.items()}, mesh)
-    terms["grad_norm"] = apply_gradients(state, mesh)
+    with span("step.backward"):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+    with span("optim.update"):
+        terms = reduce_terms({k: v.detach() for k, v in terms.items()}, mesh)
+        terms["grad_norm"] = apply_gradients(state, mesh)
     return state, terms
 
 
@@ -250,16 +260,19 @@ def make_train_step(
     dev = resolve_device(device)
 
     def step(state: TrainState, batch: dict):
-        _check_state(state, model)
-        model.train()
-        batch = batch_to_device(batch, dev)
-        out = model(_device_images(batch["image"]), batch["camintr"], mano,
-                    batch.get("obj_verts_can"))
-        loss, terms = total_supervised_loss(
-            out, _gt_from_batch(batch), batch["sup_mask"],
-            hand_lambdas=hand_lambdas, obj_lambdas=obj_lambdas, mesh=mesh,
-        )
-        return _update(state, loss, terms, mesh)
+        with span("step.sup", str(state.step)):
+            _check_state(state, model)
+            model.train()
+            with span("step.inputs"):
+                batch = batch_to_device(batch, dev)
+            out = model(_device_images(batch["image"]), batch["camintr"], mano,
+                        batch.get("obj_verts_can"))
+            with span("loss.supervised"):
+                loss, terms = total_supervised_loss(
+                    out, _gt_from_batch(batch), batch["sup_mask"],
+                    hand_lambdas=hand_lambdas, obj_lambdas=obj_lambdas, mesh=mesh,
+                )
+            return _update(state, loss, terms, mesh)
 
     return step
 
@@ -288,16 +301,17 @@ def make_warp_train_step(
     dev = resolve_device(device)
 
     def step(state: TrainState, batch: dict):
-        _check_state(state, model)
-        model.train()
-        loss, terms = warp_loss(
-            model, mano, batch, image_size, hand_lambdas=hand_lambdas,
-            obj_lambdas=obj_lambdas, lambda_consist=lambda_consist,
-            consist_gt_refs=consist_gt_refs, sigma=sigma, gamma=gamma,
-            backend=backend, photo_downscale=photo_downscale,
-            backface_cull=backface_cull, device=dev, train=True, mesh=mesh,
-        )
-        return _update(state, loss, terms, mesh)
+        with span("step.warp", str(state.step)):
+            _check_state(state, model)
+            model.train()
+            loss, terms = warp_loss(
+                model, mano, batch, image_size, hand_lambdas=hand_lambdas,
+                obj_lambdas=obj_lambdas, lambda_consist=lambda_consist,
+                consist_gt_refs=consist_gt_refs, sigma=sigma, gamma=gamma,
+                backend=backend, photo_downscale=photo_downscale,
+                backface_cull=backface_cull, device=dev, train=True, mesh=mesh,
+            )
+            return _update(state, loss, terms, mesh)
 
     return step
 
@@ -312,7 +326,8 @@ def eval_step(
     """Eval forward: the predictions ``make_eval_step`` returns, with the
     model in eval mode (batch norm on its running statistics)."""
     dev = resolve_device(device)
-    batch = batch_to_device(batch, dev)
+    with span("step.inputs"):
+        batch = batch_to_device(batch, dev)
     with _mode(model, False):
         out = model(
             _device_images(batch["image"]), batch["camintr"], mano,
@@ -340,7 +355,8 @@ def make_eval_step(
     dev = resolve_device(device)
 
     def step(state: TrainState, batch: dict) -> dict:
-        _check_state(state, model)
-        return eval_step(model, mano, batch, device=dev)
+        with span("step.eval", str(state.step)):
+            _check_state(state, model)
+            return eval_step(model, mano, batch, device=dev)
 
     return step
