@@ -138,6 +138,20 @@ Phases, each reported on its own line:
    raster, plane-prep and sampler stages (5-9) must launch the kernels the
    tool's ``KERNELS_OF_STAGE`` names and no other; the full warp step's
    K1-K4 launches per call must be the train phase's per step.
+17. mano_graph — HOCNet's MANO call, replayed from CUDA graphs
+   (``hocon_torch.geometry.mano_graph``), against ``mano_forward`` called
+   directly on the same model and batches (the data phase's): the warp
+   step's forward on 32 images and the supervised step's on 16, with grad
+   and under ``torch.no_grad``, and the mirrored hand at 16, two calls of
+   each on other inputs; HOCNet's outputs, the loss and every parameter's
+   gradient after one backward must agree bit for bit (cuDNN deterministic
+   in the phase, so the trunk's gradients repeat; eager mode is first held
+   to itself), the first call's outputs must be unchanged after the
+   second, each signature must capture once and replay once per call, the
+   right hand must keep its own graph beside its mirror's, and the
+   backward of a call after a later call of its signature must raise.
+   MANO forward + backward alone at 32 and 16 hands on strided inputs as
+   the pose head's, timed eager against graphed in turns, bit for bit too.
 
 After the phases, and after a failed one too, the script stops every
 process it started (the workers' forkserver and multiprocessing's resource
@@ -2304,6 +2318,201 @@ def phase_profile(torch, device, smi: str, train_per_step: dict) -> None:
         f"{warp['idle']:.1%}, {warp['launches']:.0f} launches per call; card {smi}")
 
 
+# Phase 17: MANO's CUDA graphs. MANO forward + backward alone is timed over
+# MANO_TIMED_CALLS calls.
+MANO_TIMED_CALLS = 50
+
+
+def same_bits(torch, a, b) -> bool:
+    """``a`` and ``b`` hold the same bits (dtype, shape and every byte)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return torch.equal(a.detach().flatten().contiguous().view(torch.uint8),
+                       b.detach().flatten().contiguous().view(torch.uint8))
+
+
+def differing(torch, got: dict, want: dict) -> list:
+    """The names whose tensors differ by a bit or are missing on one side."""
+    return sorted(k for k in set(got) | set(want)
+                  if k not in got or k not in want or not same_bits(torch, got[k], want[k]))
+
+
+def phase_mano_graph(torch, device, batch, smi: str) -> None:
+    """HOCNet's MANO call replayed from CUDA graphs against ``mano_forward``
+    called directly, bit for bit (module note, phase 17)."""
+    import contextlib
+
+    from hocon_torch.geometry import mano_graph as MG
+    from hocon_torch.geometry.mano import mano_forward, mirror_mano_model, synthetic_mano_model
+    from hocon_torch.models import hocnet as hocnet_mod
+    from hocon_torch.models.hocnet import HOCNet
+    from hocon_torch.models.losses import total_supervised_loss
+    from hocon_torch.train.steps import (_device_images, _gt_from_batch, batch_to_device,
+                                         warp_loss)
+
+    @contextlib.contextmanager
+    def eager():
+        graphed = hocnet_mod.graphed_mano_forward
+        hocnet_mod.graphed_mano_forward = (
+            lambda graphs, mano, pose, betas, rot: mano_forward(mano, pose, betas, rot,
+                                                                scale_mm=False))
+        try:
+            yield
+        finally:
+            hocnet_mod.graphed_mano_forward = graphed
+
+    right = synthetic_mano_model(0, device=device)
+    left = mirror_mano_model(right)
+    model = HOCNet(with_object=True, dtype=torch.bfloat16, seed=0, device=device)
+    model.train()
+    params = dict(model.named_parameters())
+    batch = batch_to_device(batch, torch.device(device))
+    swapped = {"ref": batch["tgt"], "tgt": batch["ref"]}
+    outs = []
+    model.register_forward_hook(lambda m, args, out: outs.append(out))
+
+    def warp(b, mano):  # the warp step's forward: HOCNet on [ref; tgt], 32 images
+        return warp_loss(model, mano, b, (RES, RES), device=device, train=True)[0]
+
+    def sup(view, mano):  # the supervised step's forward, 16 images
+        out = model(_device_images(view["image"]), view["camintr"], mano, view["obj_verts_can"])
+        return total_supervised_loss(out, _gt_from_batch(view), view["sup_mask"])[0]
+
+    def run(loss_fn, grad: bool) -> dict:
+        """HOCNet's outputs, the loss and, with ``grad``, every parameter's
+        gradient after one backward."""
+        model.zero_grad(set_to_none=True)
+        outs.clear()
+        with torch.set_grad_enabled(grad):
+            loss = loss_fn()
+        got = {f"out.{k}": v for k, v in outs[0].items()}
+        got["loss"] = loss
+        if grad:
+            loss.backward()
+            got.update((f"grad.{k}", p.grad) for k, p in params.items())
+        torch.cuda.synchronize()
+        return got
+
+    # MANO forward + backward alone, eager against graphed, on inputs laid
+    # out as the pose head's (strided slices of one (B, 18) output).
+    lines = []
+    for n in (2 * PAIRS, PAIRS):
+        gen = torch.Generator(device=device).manual_seed(n)
+        head = torch.randn(n, 18, generator=gen, device=device) * 0.3
+        betas = torch.randn(n, 10, generator=gen, device=device).requires_grad_()
+        head.requires_grad_()
+        inputs = (head[:, :15], betas, head[:, 15:])
+        gv = torch.randn(n, 778, 3, generator=gen, device=device)
+        gj = torch.randn(n, 21, 3, generator=gen, device=device)
+        graphs = MG.ManoGraphs()
+
+        def eager_call():
+            return mano_forward(right, *inputs, scale_mm=False)
+
+        def graphed_call():
+            return MG.graphed_mano_forward(graphs, right, *inputs)
+
+        results, ms = {}, {}
+        for name, call in (("eager", eager_call), ("graphed", graphed_call)):
+            head.grad = betas.grad = None
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            verts, joints = call()
+            torch.autograd.backward((verts, joints), (gv, gj))
+            results[name] = {"verts": verts, "joints": joints, "head.grad": head.grad,
+                             "betas.grad": betas.grad}
+            torch.cuda.synchronize()
+        # What the capture keeps: graph pools, static buffers and, on the
+        # device's first capture, its stream's library workspaces.
+        pool = torch.cuda.memory_allocated() - before - sum(
+            t.numel() * t.element_size() for t in results["graphed"].values())
+        for name, call in (("eager", eager_call), ("graphed", graphed_call),
+                           ("graphed", graphed_call), ("eager", eager_call)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(MANO_TIMED_CALLS):
+                head.grad = betas.grad = None
+                torch.autograd.backward(call(), (gv, gj))
+            torch.cuda.synchronize()
+            ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e3 / MANO_TIMED_CALLS)
+        bad = differing(torch, results["graphed"], results["eager"])
+        if bad:
+            fail(f"mano_graph: {n} hands, strided inputs: {bad} differ")
+        lines.append(f"{n} hands: eager {ms['eager'][0]:.3f} / {ms['eager'][1]:.3f} ms, "
+                     f"graphed {ms['graphed'][0]:.3f} / {ms['graphed'][1]:.3f} ms, the "
+                     f"capture kept {pool / 2**20:.1f} MiB")
+    log(f"mano_graph: MANO forward + backward per call (wall, {MANO_TIMED_CALLS} calls, in "
+        f"turns eager, graphed, graphed, eager), outputs and input gradients bit for bit: "
+        + "; ".join(lines) + f"; card {smi}")
+
+    # (what, loss function per call, grad): each case is one signature.
+    cases = [
+        ("warp step, 32 images", [lambda: warp(batch, right), lambda: warp(swapped, right)], True),
+        ("supervised step, 16 images", [lambda: sup(batch["ref"], right),
+                                        lambda: sup(batch["tgt"], right)], True),
+        ("no_grad, 32 images", [lambda: warp(batch, right), lambda: warp(swapped, right)], False),
+        ("no_grad, 16 images", [lambda: sup(batch["ref"], right),
+                                lambda: sup(batch["tgt"], right)], False),
+        ("mirror, supervised step, 16 images", [lambda: sup(batch["ref"], left),
+                                                lambda: sup(batch["tgt"], left)], True),
+    ]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the trunk's gradients repeat between runs
+    try:
+        with eager():
+            want = [[run(fn, grad) for fn in fns] for _, fns, grad in cases]
+            again = run(cases[0][1][0], True)
+        if differing(torch, again, want[0][0]):
+            fail(f"mano_graph: eager mode does not repeat its own bits: "
+                 f"{differing(torch, again, want[0][0])[:8]}")
+        caps = MG.graphed_mano_forward.captures
+        for (what, fns, grad), wants in zip(cases, want):
+            c0, r0 = MG.graphed_mano_forward.captures, MG.graphed_mano_forward.replays
+            got = [run(fn, grad) for fn in fns]
+            captured = MG.graphed_mano_forward.captures - c0
+            replayed = MG.graphed_mano_forward.replays - r0
+            bad = [differing(torch, g, w) for g, w in zip(got, wants)]
+            # The first call's outputs, returned before the later replays.
+            kept = differing(torch, {k: v for k, v in got[0].items() if k.startswith("out.")},
+                             {k: v for k, v in wants[0].items() if k.startswith("out.")})
+            n_grads = sum(k.startswith("grad.") for k in wants[0])
+            log(f"mano_graph: {what}: {len(fns)} calls, {captured} capture, {replayed} "
+                f"replays; outputs ({len(wants[0]) - n_grads - 1}), the loss and {n_grads} "
+                f"parameter gradients against mano_forward called directly: "
+                f"{sum(map(len, bad))} differ; the first call's outputs after the last: "
+                f"{len(kept)} differ")
+            if any(bad) or kept:
+                fail(f"mano_graph: {what}: differing bits {bad}, first call's outputs {kept}")
+            if captured != 1 or replayed != len(fns):
+                fail(f"mano_graph: {what}: {captured} captures and {replayed} replays over "
+                     f"{len(fns)} calls, want 1 and {len(fns)}")
+        # The right hand after its mirror: its own graph, its own bits.
+        again = run(cases[1][1][0], True)
+        if differing(torch, again, want[1][0]):
+            fail(f"mano_graph: the right hand after the mirror: "
+                 f"{differing(torch, again, want[1][0])[:8]} differ")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    signatures = len(model.mano_graphs)
+    if signatures != len(cases) or MG.graphed_mano_forward.captures - caps != len(cases):
+        fail(f"mano_graph: {signatures} graphs cached, "
+             f"{MG.graphed_mano_forward.captures - caps} captured, want {len(cases)}")
+
+    # A backward after a later call of its signature must refuse.
+    outs.clear()
+    first = sup(batch["ref"], right)
+    sup(batch["tgt"], right)
+    try:
+        first.backward()
+    except RuntimeError as e:
+        stale = "older call" in str(e)
+    else:
+        stale = False
+    if not stale:
+        fail("mano_graph: the backward of an older call ran on a later call's saved tensors")
+
+
+
 def descendants(pid: int) -> dict:
     """The processes under ``pid`` (children, their children, ...), from
     ``/proc``: pid -> (name, state)."""
@@ -2409,6 +2618,7 @@ def run_phases(torch, out_dir: str) -> list:
     phase_repro(torch, device, smi)
     phase_ddp(torch, device, batch, smi, out_dir)
     phase_profile(torch, device, smi, train_per_step)
+    phase_mano_graph(torch, device, batch, smi)
     for kern, name in ((k1, "raster_fwd"), (k1c3, "raster_fwd C=3"), (k2, "raster_bwd"),
                        (k3, "sample_fwd"), (k4, "sample_bwd")):
         kern["launches"] = cli[name]

@@ -17,6 +17,7 @@ so both give the reference's arrays bit for bit.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import io
 import pickle
 from typing import Any
@@ -39,6 +40,16 @@ JOINT_REORDER = (
 
 N_VERTS = 778
 N_JOINTS_KIN = 16
+
+
+@functools.cache
+def mano_indices(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``FINGERTIP_VERT_IDS`` and ``JOINT_REORDER`` as int64 tensors on
+    ``device``, made once per device: indexing with a Python list copies it
+    to the card, and waits on the stream, at every call (and a CUDA graph
+    cannot hold that copy). The gathers give the list index's values."""
+    return (torch.tensor(FINGERTIP_VERT_IDS, dtype=torch.int64, device=device),
+            torch.tensor(JOINT_REORDER, dtype=torch.int64, device=device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -311,8 +322,9 @@ def mano_forward(
     t_t = torch.einsum("vj,bjr->bvr", model.skin_weights, g_skin_t)
     verts = torch.einsum("bvrc,bvc->bvr", t_rot, v_posed) + t_t
 
-    tips = verts[:, list(FINGERTIP_VERT_IDS)]
-    joints = torch.cat([joints_kin, tips], dim=1)[:, list(JOINT_REORDER)]
+    tip_ids, reorder = mano_indices(verts.device)
+    tips = verts[:, tip_ids]
+    joints = torch.cat([joints_kin, tips], dim=1)[:, reorder]
 
     if trans is not None:
         if center_idx is not None:

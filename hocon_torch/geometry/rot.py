@@ -100,7 +100,7 @@ def matrix_to_rodrigues(rot: torch.Tensor) -> torch.Tensor:
 def with_zeros_4x4(rot: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
     """Pack (..., 3, 3) rotation + (..., 3) translation into (..., 4, 4)."""
     top = torch.cat([rot, trans[..., :, None]], dim=-1)
-    bottom = torch.tensor(
-        [0.0, 0.0, 0.0, 1.0], dtype=rot.dtype, device=rot.device
-    ).expand(top.shape[:-2] + (1, 4))
-    return torch.cat([top, bottom], dim=-2)
+    # (0, 0, 0, 1) made on the device: a host tensor would be a copy to the
+    # card, and a wait on the stream, at every call.
+    bottom = torch.eye(4, dtype=rot.dtype, device=rot.device)[3]
+    return torch.cat([top, bottom.expand(top.shape[:-2] + (1, 4))], dim=-2)

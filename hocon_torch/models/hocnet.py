@@ -10,7 +10,8 @@ import torch
 from torch import nn
 
 from hocon_torch.device import resolve_device
-from hocon_torch.geometry.mano import ManoModel, mano_forward
+from hocon_torch.geometry.mano import ManoModel
+from hocon_torch.geometry.mano_graph import ManoGraphs, graphed_mano_forward
 from hocon_torch.geometry.project import persp_project, transform_points
 from hocon_torch.models.backbone import (
     BatchNorm2d,
@@ -39,6 +40,11 @@ class HOCNet(nn.Module):
     biases, zero scale on each block's last norm, near-zero output layers),
     then moved to ``device`` (CUDA if None). Load Flax weights with
     ``hocon_torch.utils.flax_weights.load_flax_variables``.
+
+    On the card, MANO's forward and backward replay CUDA graphs held in
+    ``mano_graphs``, one pair per input signature
+    (``hocon_torch.geometry.mano_graph``); the cache is not in the state
+    dict, and a deep copy starts an empty one.
     """
 
     def __init__(
@@ -71,6 +77,7 @@ class HOCNet(nn.Module):
         )
         self.reset_parameters(torch.Generator().manual_seed(seed))
         self.to(dev)
+        self.mano_graphs = ManoGraphs()
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -98,8 +105,8 @@ class HOCNet(nn.Module):
             pose_pca, betas, root_rot = self.mano_head(feats)
             trans = self.absolute_head(feats)
         with span("model.mano"):
-            verts_m, joints_m = mano_forward(
-                mano, pose_pca, betas, root_rot, scale_mm=False
+            verts_m, joints_m = graphed_mano_forward(
+                self.mano_graphs, mano, pose_pca, betas, root_rot
             )
         with span("model.heads"):
             verts_cam = verts_m + trans[:, None]
