@@ -5,12 +5,13 @@ Peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, dense, at a 700 W
 limit): 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s f32 outside them,
 3.35 TB/s of HBM.
 
-The step's FLOPs are its matrix work, counted from the shapes whatever
-computes it: the ResNet trunk's convolutions forward (2 per multiply-add),
-their input and weight gradients backward (the stem's input gradient is
-not taken), and the heads' dense layers forward and backward. The
+The step's FLOPs are the model's matrix work, forward and backward,
+counted from the configuration's shapes whatever computes it. Each model
+family counts its own (``reference/families/<family>.py:flops``): ``hocnet``
+counts the ResNet trunk's convolutions and the MLP heads' dense layers. The
 elementwise work (batch norm, ReLU, MANO, the losses, SSIM, the raster's
-affine rows) is left out: it is small beside the trunk and bound by bytes.
+affine rows) is left out: it is small beside the matrix work and bound by
+bytes.
 
 The raster's least time counts the (face, pixel) pairs whose f32
 contribution is not exactly zero in the cells (8-row block x lane block)
@@ -27,6 +28,8 @@ import math
 
 import torch
 
+from reference import families
+
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
@@ -35,46 +38,14 @@ FACE_CHUNK, ROW_BLOCK, LANE_BLOCK = 32, 8, 256
 FIXED_M_MAX_INV_GAMMA = 60.0
 
 
-def trunk_flops(stage_sizes, widths, size: int, images: int) -> float:
-    """ResNet basic-block trunk, forward + backward, at ``size`` px."""
-    def out(n, k, s, p):
-        return (n + 2 * p - k) // s + 1
-
-    convs = []  # (cin, cout, k, h_out)
-    h = out(size, 7, 2, 3)
-    convs.append((3, widths[0], 7, h))
-    h = out(h, 3, 2, 1)
-    cin = widths[0]
-    for i, (n, cout) in enumerate(zip(stage_sizes, widths)):
-        for j in range(n):
-            stride = 2 if i > 0 and j == 0 else 1
-            ho = out(h, 3, stride, 1)
-            convs.append((cin, cout, 3, ho))
-            convs.append((cout, cout, 3, ho))
-            if stride != 1 or cin != cout:
-                convs.append((cin, cout, 1, ho))
-            cin, h = cout, ho
-    fwd = [2.0 * ci * co * k * k * ho * ho for ci, co, k, ho in convs]
-    return images * (3 * sum(fwd) - fwd[0])
-
-
-def heads_flops(cfg: dict, images: int) -> float:
-    m = cfg["model"]
-    nf, hid = m["widths"][-1], m["head_hidden"]
-    layers = [(nf, hid), (hid, hid), (hid, m["mano_ncomps"] + 3),
-              (nf, hid), (hid, hid), (hid, 10), (nf, hid), (hid, 3)]
-    if m["with_object"]:
-        layers += [(nf, hid), (hid, 3), (nf, hid), (hid, 6)]
-    return images * 3 * sum(2.0 * a * b for a, b in layers)
-
-
 def step_flops(cfg: dict, kind: str) -> float:
-    """One train step's matrix FLOPs: the warp step runs the trunk on both
-    views of each pair, the supervised step on the reference views."""
-    m, d = cfg["model"], cfg["data"]
+    """One train step's matrix FLOPs, as the configuration's family counts
+    them (``reference/families/<family>.py:flops``): the warp step runs the
+    model on both views of each pair, the supervised step on the reference
+    views."""
+    d = cfg["data"]
     images = d["pairs_per_step"] * (2 if kind == "warp" else 1)
-    return (trunk_flops(m["stage_sizes"], m["widths"], d["image_size"], images)
-            + heads_flops(cfg, images))
+    return families.load(cfg).flops(cfg, images)
 
 
 def sample_bytes(cfg: dict) -> float:

@@ -1,10 +1,12 @@
 """The system under test: the port's train step, built as a training run
-builds it. The only module of the benchmark that imports ``hocon_torch``.
+builds it. With the port's side of each model family
+(``harness/families/``), the only modules of the benchmark that import
+``hocon_torch``.
 
 The warp cells drive the step that ``make_warp_train_step`` returns, the
 supervised cell the one from ``make_train_step``, both on
-``create_train_state(HOCNet(...), make_optimizer("adam", lr))`` with the
-trunk in bf16 autocast and frozen batch norm. The benchmark's weights and
+``create_train_state(model, make_optimizer("adam", lr))``, where the model
+is the configuration's family's ``port_model``. The benchmark's weights and
 MANO arrays are loaded into the port's own objects.
 
 ``fault`` plants one of the faults that the comparison must catch (the
@@ -20,6 +22,8 @@ import contextlib
 
 import torch
 
+from harness import families
+
 FAULTS = ("unchanged", "half_batch", "altered")
 
 
@@ -30,28 +34,24 @@ def build(cfg: dict, kind: str, mano: dict, weights: dict, device, log=None):
 
     t0 = time.time()
     from hocon_torch.geometry.mano import ManoModel
-    from hocon_torch.models.hocnet import HOCNet
     from hocon_torch.train.state import create_train_state, make_optimizer
     from hocon_torch.train.steps import make_train_step, make_warp_train_step
 
-    m, tr = cfg["model"], cfg["training"]
+    tr = cfg["training"]
     lam = tr["lambdas"]
     hand = {"lambda_verts3d": lam["verts3d"], "lambda_joints3d": lam["joints3d"],
             "lambda_joints2d": lam["joints2d"], "lambda_shape": lam["shape"],
             "lambda_pose": lam["pose"]}
     obj = {"lambda_obj_verts3d": lam["obj_verts3d"]}
     t1 = time.time()
-    model = HOCNet(ncomps=m["mano_ncomps"], center_idx=m["center_idx"],
-                   with_object=m["with_object"], backbone=m["backbone"],
-                   freeze_batchnorm=m["freeze_batchnorm"], z_init=m["z_init"],
-                   dtype=getattr(torch, m["trunk_dtype"]), seed=0, device=device)
+    model = families.load(cfg).port_model(cfg, device)
     t2 = time.time()
     model.load_state_dict(weights, strict=True)
     mano_model = ManoModel(**mano)
     spec = make_optimizer(tr["optimizer"], tr["lr"])
     state = create_train_state(model, spec)
     if log is not None:
-        log(f"set-up: the program's imports {t1 - t0:.3f} s, HOCNet {t2 - t1:.3f} s, "
+        log(f"set-up: the program's imports {t1 - t0:.3f} s, the model {t2 - t1:.3f} s, "
             f"weights and train state {time.time() - t2:.3f} s")
     if kind == "warp":
         size = cfg["data"]["image_size"]

@@ -1,5 +1,6 @@
 """The cell's inputs, made from ``--seed`` on the device: the MANO stand-in's
-arrays, HOCNet's weights and the pool of frame-pair batches.
+arrays, the configuration's model's weights and the pool of frame-pair
+batches.
 
 The synthetic scene follows the repository's synthetic dataset: per video,
 MANO pose, root rotation and translation interpolated between two seeded
@@ -24,8 +25,9 @@ import math
 import numpy as np
 import torch
 
+from reference import families
 from reference import render as ref_render
-from reference.model import HOCNet, lecun_std, mano_forward, persp_project
+from reference.model import mano_forward, persp_project
 
 N_VERTS, N_JOINTS = 778, 16
 OBJ_OFFSET = (0.0, 0.04, 0.02)
@@ -87,41 +89,10 @@ def mano_arrays(seed: int, device) -> dict:
     }
 
 
-@torch.no_grad()
 def weights(cfg: dict, seed: int, device) -> dict:
-    """HOCNet's state dict as Flax initialises it, drawn in two calls: a
-    truncated normal for every kernel (lecun-normal: variance 1 / fan-in),
-    a normal of std 1e-3 for each MLP's output layer; zero biases; batch
-    norm at scale 1 (0 on each block's last norm), shift 0, running mean 0
-    and variance 1."""
-    with torch.device("meta"):
-        model = HOCNet(cfg)
-    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
-    out_layers = {f"{name}.layers.{len(m.layers) - 1}.weight"
-                  for name, m in model.named_modules() if hasattr(m, "layers")}
-    zero_scale = {f"{name}.weight" for name, m in model.named_modules()
-                  if getattr(m, "zero_scale", False)}
-    lecun = [k for k, s in shapes.items()
-             if k.endswith("weight") and len(s) > 1 and k not in out_layers]
-    g = generator(seed, 1, device)
-    f32 = dict(device=device, dtype=torch.float32)
-    n_lecun = sum(math.prod(shapes[k]) for k in lecun)
-    trunc = torch.nn.init.trunc_normal_(torch.empty(n_lecun, **f32), a=-2.0, b=2.0, generator=g)
-    outs = torch.randn(sum(math.prod(shapes[k]) for k in out_layers), generator=g, **f32) * 1e-3
-    sd, i, j = {}, 0, 0
-    for k, s in shapes.items():
-        n = math.prod(s)
-        if k in out_layers:
-            sd[k] = outs[j:j + n].reshape(s)
-            j += n
-        elif k in lecun:
-            sd[k] = trunc[i:i + n].reshape(s) * lecun_std(s)
-            i += n
-        elif k.endswith("running_var") or (k.endswith(".weight") and k not in zero_scale):
-            sd[k] = torch.ones(s, **f32)
-        else:
-            sd[k] = torch.zeros(s, **f32)
-    return sd
+    """The configuration's model's state dict, drawn by its family
+    (``reference/families/<family>.py:weights``) from the weights stream."""
+    return families.load(cfg).weights(cfg, generator(seed, 1, device), device)
 
 
 def uv_sphere(target_faces: int):

@@ -26,16 +26,13 @@ number on its forward thread. ``spans`` gives, per span name and step:
 Work charged to no span is under ``NONE``. A program without spans gives
 ``NONE`` alone.
 
-The per-layer readers take ``of(summary)``. The harness's summary holds
-no events, so ``of`` reduces the traced stretch that ``run.run`` holds
-(its ``tr``) on the first call, stores it as ``summary["spans"]`` and logs
-one line per span.
+``run.run`` reduces the traced stretch into ``summary["spans"]`` and logs
+one line per span (``report``); the per-layer readers take ``of(summary)``.
 """
 
 from __future__ import annotations
 
 import bisect
-import sys
 
 from harness.measure import SYNC_CALLS, _is_device
 
@@ -198,32 +195,19 @@ def cover(sp: dict) -> dict:
     }
 
 
-def _traced_events():
-    """The events of the traced stretch that ``run.run`` holds, if a caller
-    holds one."""
-    frame = sys._getframe(1)
-    while frame is not None:
-        tr = frame.f_locals.get("tr")
-        if isinstance(tr, dict) and {"events", "span_s", "counters"} <= set(tr):
-            return tr["events"]
-        frame = frame.f_back
-    return None
+def report(sp: dict, log) -> None:
+    """One line per span to ``log``, then the cover figures."""
+    for name, r in sp.items():
+        log(f"span {name}: host {r['host_ms']:.3f} ms (self {r['self_ms']:.3f}), device "
+            f"{r['device_ms']:.3f} ms, idle {r['idle_ms']:.3f} ms, launches "
+            f"{r['launches']:.1f}, syncs {r['syncs']:.1f}, ranges {r['count']:.1f} a step"
+            f"{'' if r['parent'] is None else ' in ' + r['parent']}")
+    if sp:
+        log("spans: " + ", ".join(f"{k} {'none' if v is None else f'{v:.4f}'}"
+                                  for k, v in cover(sp).items()))
 
 
 def of(summary: dict) -> dict:
-    """``summary["spans"]``; reduced from the traced stretch and logged on
-    the first call ({} when no traced stretch is at hand)."""
-    if "spans" not in summary:
-        events = _traced_events()
-        summary["spans"] = {} if events is None else spans(events, summary["steps"])
-        for name, r in summary["spans"].items():
-            print(f"span {name}: host {r['host_ms']:.3f} ms (self {r['self_ms']:.3f}), device "
-                  f"{r['device_ms']:.3f} ms, idle {r['idle_ms']:.3f} ms, launches "
-                  f"{r['launches']:.1f}, syncs {r['syncs']:.1f}, ranges {r['count']:.1f} a step"
-                  f"{'' if r['parent'] is None else ' in ' + r['parent']}",
-                  file=sys.stderr, flush=True)
-        if summary["spans"]:
-            c = cover(summary["spans"])
-            print("spans: " + ", ".join(f"{k} {'none' if v is None else f'{v:.4f}'}"
-                                        for k, v in c.items()), file=sys.stderr, flush=True)
-    return summary["spans"]
+    """The traced stretch's spans, which ``run.run`` reduces into
+    ``summary["spans"]`` ({} when there is none)."""
+    return summary.get("spans", {})

@@ -1,10 +1,11 @@
 """The train steps in plain PyTorch: the benchmark's reference.
 
-``run_steps`` builds the reference HOCNet from the benchmark's weights and
-takes the cell's first steps on the benchmark's batches: the forward, the
-masked supervised losses, in a warp cell the photometric warp (plane prep,
-soft raster, bilinear sample, masked SSIM + L1) over [ref; tgt], autograd's
-backward, and Adam as optax states it (f32 bias corrections). It returns
+``run_steps`` builds the configuration's model (its family's reference,
+``reference/families/``) from the benchmark's weights and takes the cell's
+first steps on the benchmark's batches: the forward, the masked supervised
+losses, in a warp cell the photometric warp (plane prep, soft raster,
+bilinear sample, masked SSIM + L1) over [ref; tgt], autograd's backward,
+and Adam as optax states it (f32 bias corrections). It returns
 what the comparison reads: each step's loss, the first step's terms, each
 leaf's first gradient norm and each leaf's change after the last step.
 
@@ -16,8 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from reference import render
-from reference.model import HOCNet, persp_project
+from reference import families, render
+from reference.model import persp_project
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 
@@ -122,7 +123,7 @@ def run_steps(cfg: dict, kind: str, mano: dict, weights: dict, batches: list,
     prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
     try:
-        model = HOCNet(cfg).to(device)
+        model = families.load(cfg).Model(cfg).to(device)
         model.load_state_dict(weights, strict=True)
         leaves = dict(model.named_parameters())
         start = {k: p.detach().clone() for k, p in leaves.items()}

@@ -8,7 +8,7 @@ A cell is ``benchmark/workloads/CELL.json``: a configuration
 train step; ``sup``: the supervised train step), the size of its batch
 pool and the limits of its comparison. The run:
 
-1. makes the MANO stand-in, HOCNet's weights and a pool of frame-pair
+1. makes the MANO stand-in, the model's weights and a pool of frame-pair
    batches on the card from ``--seed`` (``harness/scene.py``);
 2. builds the port's train state and step (``harness/program.py``), takes
    its first three steps on the pool's first batches (the checked steps),
@@ -20,6 +20,35 @@ pool and the limits of its comparison. The run:
 5. frees the program, runs the plain-PyTorch reference
    (``benchmark/reference/``) on the same weights and batches and compares
    the checked steps with it (``harness/compare.py``).
+
+A configuration names its model family in ``model.family`` (``hocnet``
+without the key); the run finds the family by that name, as it finds a
+per-layer reader, and fails with a ``ValueError`` before any device work
+where either of its two files is missing. A family is:
+
+- ``benchmark/reference/families/<family>.py``, which imports ``torch``,
+  ``numpy`` and ``reference.*`` and nothing of the port or of JAX:
+  ``Model(cfg)``, an ``nn.Module`` whose ``forward(images, camintr, mano,
+  obj_verts_can=None)`` (NHWC ImageNet-normalised images, intrinsics, the
+  MANO arrays as a dict, the object's canonical vertices or None) returns
+  ``pose_pca`` (the pose vector that ``lambdas.pose`` regularises),
+  ``betas``, ``verts_cam``, ``verts_c_mm``, ``joints_c_mm``, ``joints2d``
+  and, with an object, ``obj_verts_cam`` and ``obj_verts_c_mm``, its
+  parameters named as in the port's state dict; ``weights(cfg, generator,
+  device)``, the seeded state dict, drawn from ``generator``;
+  ``flops(cfg, images)``, the model's matrix FLOPs forward and backward
+  for ``images`` images (``step.mfu`` divides by them);
+- ``benchmark/harness/families/<family>.py``: ``port_model(cfg, device)``,
+  the port's model built as a training run builds it, which the port's
+  steps call as the reference's is called, with the port's ``ManoModel``
+  in place of the dict, and which returns the same keys. For today's
+  readers it opens the spans ``model.trunk``, ``model.heads`` and
+  ``model.mano`` (``model.host_ms``).
+
+The configuration's ``model.with_object`` says whether the batches carry
+the object. The step kinds, the scene, the losses, the render reference,
+Adam and the comparison are shared by every family. So a new architecture
+joins as a configuration, a cell and a family: new files only.
 
 The last line of standard output is one JSON object: ``correct``,
 ``attempted``, ``failed``, ``metrics``, ``device`` (and ``breakdown`` when
@@ -121,9 +150,13 @@ def run(name: str, seed: int, seconds: float, trace: bool, device, fault=None,
         sys.path.insert(0, ROOT)
     import torch
 
-    from harness import compare, measure, program, scene
+    from harness import compare, families, measure, program, scene, spans
+    from reference import families as reference_families
     from reference import step as reference
 
+    # A family without its two files fails here, before any device work.
+    reference_families.load(cfg)
+    families.load(cfg)
     torch.set_num_threads(1)
     # The configuration's precision: the trunk in bf16 autocast, the rest
     # float32 with TF32 off.
@@ -188,11 +221,12 @@ def run(name: str, seed: int, seconds: float, trace: bool, device, fault=None,
                                 program.k1_inputs(held), on_card)
             summary = measure.summarize(tr["events"], TRACE_STEPS)
             summary.update(cfg=cfg, kind=kind, step_ms=step_ms, k1_inputs=held,
-                           counters=tr["counters"])
+                           counters=tr["counters"], spans=spans.spans(tr["events"], TRACE_STEPS))
             log(f"trace: {TRACE_STEPS} steps in {tr['span_s']:.3f} s; K1-K4 launches in the "
                 f"trace {summary['kernel_launches']}, by the wrappers' counters "
                 f"{tr['counters']}"
                 + ("" if summary["kernel_launches"] == tr["counters"] else " (MISMATCH)"))
+            spans.report(summary["spans"], log)
             metrics = {}
             for m in per_layer:
                 value = load_metric(m["name"]).read(summary)

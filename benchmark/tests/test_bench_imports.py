@@ -36,7 +36,8 @@ def test_a_run_loads_no_jax():
         run.run("hocnet_r18_128_box.warp", 7, 0.2, True, "cpu")
         for name in ("step.launches", "step.syncs", "step.mfu", "model.conv_ms",
                      "kernels.raster_roofline", "kernels.sample_roofline",
-                     "device.busy_ms", "device.idle_share"):
+                     "device.busy_ms", "device.idle_share", "model.host_ms",
+                     "render.host_ms", "render.device_ms", "optim.host_ms"):
             run.load_metric(name)
     """).format(bench=BENCH).replace("\n", "\n        ")
     loaded = _modules_after(code)
@@ -45,9 +46,15 @@ def test_a_run_loads_no_jax():
 
 
 def test_reference_loads_nothing_of_the_port():
-    loaded = _modules_after("import reference.step, reference.render, reference.model")
+    loaded = _modules_after("import reference.step, reference.render, reference.model, "
+                            "reference.families.hocnet")
     assert not loaded & {"hocon_torch", *run.FORBIDDEN}
-    for name in os.listdir(os.path.join(BENCH, "reference")):
-        if name.endswith(".py"):
-            src = open(os.path.join(BENCH, "reference", name)).read()
-            assert "hocon_torch" not in src.replace("``hocon_torch``", ""), name
+    scanned = []
+    for folder, _, names in os.walk(os.path.join(BENCH, "reference")):
+        for name in names:
+            if name.endswith(".py"):
+                path = os.path.join(folder, name)
+                scanned.append(os.path.relpath(path, BENCH))
+                src = open(path).read()
+                assert "hocon_torch" not in src.replace("``hocon_torch``", ""), path
+    assert os.path.join("reference", "families", "hocnet.py") in scanned
