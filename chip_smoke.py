@@ -152,6 +152,16 @@ Phases, each reported on its own line:
    backward of a call after a later call of its signature must raise.
    MANO forward + backward alone at 32 and 16 hands on strided inputs as
    the pose head's, timed eager against graphed in turns, bit for bit too.
+18. hamer — HaMeR at its published widths (``hocon_torch.models.hamer``,
+   ViT-H/16 and the cross-attending decoder, bf16 autocast) on 32 seeded
+   256^2 crops: one forward and backward under ``torch.profiler``, which
+   must count 44 ``attention.calls`` and 44 ``model.attn`` ranges, launch
+   flash or memory-efficient attention kernels forward and backward and
+   never run the math backend; float64 inputs, which neither pinned
+   backend takes, must raise; finite outputs and gradients; then MANO from
+   rotation matrices replayed from CUDA graphs (``graphed_mano_rotmat``) on
+   seeded rotations against ``mano_forward_rotmat``, bit for bit
+   forward and backward, one capture and one replay a call.
 
 After the phases, and after a failed one too, the script stops every
 process it started (the workers' forkserver and multiprocessing's resource
@@ -2534,6 +2544,90 @@ def descendants(pid: int) -> dict:
     return found
 
 
+def phase_hamer(torch, device, smi: str) -> None:
+    """HaMeR's attention and MANO entry on the card (module note, phase 18)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hocon_torch.geometry import mano_graph as MG
+    from hocon_torch.geometry.mano import mano_forward_rotmat, synthetic_mano_model
+    from hocon_torch.geometry.rot import rot6d_to_matrix
+    from hocon_torch.models.attention import attention
+    from hocon_torch.models.hamer import HaMeR
+
+    t0 = time.perf_counter()
+    mano = synthetic_mano_model(0, device=device)
+    model = HaMeR(seed=0, device=device)
+    gen = torch.Generator(device=device).manual_seed(18)
+    images = torch.randn(2 * PAIRS, RES, RES, 3, generator=gen, device=device)
+    camintr = torch.tensor([[3.0 * RES, 0.0, RES / 2], [0.0, 3.0 * RES, RES / 2],
+                            [0.0, 0.0, 1.0]], device=device).expand(2 * PAIRS, 3, 3)
+    model(images, camintr, mano)["verts_cam"].sum().backward()  # warm-up and MANO's capture
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    calls = attention.calls
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = model(images, camintr, mano)
+        (out["verts_cam"].square().sum() + out["joints2d"].sum()).backward()
+        torch.cuda.synchronize()
+    calls = attention.calls - calls
+    events = prof.events()
+    ranges = sum(1 for e in events if e.device_type.name == "CPU" and e.name == "model.attn")
+    kernels = sorted({e.name for e in events if e.device_type.name == "CUDA"
+                      and any(k in e.name.lower() for k in ("flash", "fmha", "attention"))})
+    ops = {e.name for e in events if "scaled_dot_product" in e.name}
+    if calls != 44 or ranges != 44:
+        fail(f"hamer: {calls} attention calls and {ranges} model.attn ranges a forward, not 44")
+    if not any("bwd" in k or "backward" in k for k in kernels) or len(kernels) < 2:
+        fail(f"hamer: no flash or memory-efficient kernels forward and backward: {kernels}")
+    if any("math" in op for op in ops):
+        fail(f"hamer: the math backend ran: {sorted(ops)}")
+    bad = [k for k, v in out.items() if not torch.isfinite(v).all()]
+    bad += [k for k, p in model.named_parameters() if p.grad is None
+            and k != "mano_head.transformer.to_token_embedding.weight"]
+    bad += [k for k, p in model.named_parameters() if p.grad is not None
+            and not torch.isfinite(p.grad).all()]
+    if bad:
+        fail(f"hamer: non-finite or missing outputs and gradients: {bad[:8]}")
+    q = torch.randn(2, 16, 192, 80, device=device, dtype=torch.float64)
+    try:
+        attention(q, q, q)
+    except RuntimeError as e:
+        refused = str(e).splitlines()[0][:120]
+    else:
+        fail("hamer: float64 attention ran although neither pinned backend takes it")
+
+    # MANO from seeded rotations near the identity (HaMeR's initial pose),
+    # graphed against eager, bit for bit.
+    init = torch.tensor([1.0, 0.0, 0.0, 0.0, 1.0, 0.0], device=device)
+    six = (init + 0.3 * torch.randn(2 * PAIRS, 16, 6, generator=gen, device=device))
+    six.requires_grad_()
+    betas = torch.randn(2 * PAIRS, 10, generator=gen, device=device).requires_grad_()
+    gv = torch.randn(2 * PAIRS, 778, 3, generator=gen, device=device)
+    graphs = MG.ManoGraphs()
+    results = {}
+    for name, fn in (("eager", lambda r: mano_forward_rotmat(mano, r, betas, scale_mm=False)),
+                     ("graphed", lambda r: MG.graphed_mano_rotmat(graphs, mano, r, betas))):
+        c0, r0 = MG.graphed_mano_forward.captures, MG.graphed_mano_forward.replays
+        six.grad = betas.grad = None
+        rots = rot6d_to_matrix(six)
+        verts, joints = fn(rots)
+        ((verts * gv).sum() + joints.sum()).backward()
+        torch.cuda.synchronize()
+        results[name] = {"verts": verts, "joints": joints, "six.grad": six.grad.clone(),
+                         "betas.grad": betas.grad.clone()}
+        results[name + " counts"] = (MG.graphed_mano_forward.captures - c0,
+                                     MG.graphed_mano_forward.replays - r0)
+    if differing(torch, results["graphed"], results["eager"]):
+        fail(f"hamer: graphed rotation-matrix MANO differs: "
+             f"{differing(torch, results['graphed'], results['eager'])}")
+    if results["graphed counts"] != (1, 1) or results["eager counts"] != (0, 0):
+        fail(f"hamer: captures and replays {results['graphed counts']}, not (1, 1)")
+    log(f"hamer: 44 attention calls and model.attn ranges a forward; kernels {kernels}; "
+        f"float64 refused ({refused}); rotation-matrix MANO graphed = eager bit for bit "
+        f"(1 capture, 1 replay); peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; "
+        f"{time.perf_counter() - t0:.1f} s; card {smi}")
+
+
 def stop_processes() -> None:
     """Stop every process this script started, and fail if one is left:
     the loaders' workers stop with their CLI calls, the forkserver and the
@@ -2619,6 +2713,7 @@ def run_phases(torch, out_dir: str) -> list:
     phase_ddp(torch, device, batch, smi, out_dir)
     phase_profile(torch, device, smi, train_per_step)
     phase_mano_graph(torch, device, batch, smi)
+    phase_hamer(torch, device, smi)
     for kern, name in ((k1, "raster_fwd"), (k1c3, "raster_fwd C=3"), (k2, "raster_bwd"),
                        (k3, "sample_fwd"), (k4, "sample_bwd")):
         kern["launches"] = cli[name]

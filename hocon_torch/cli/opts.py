@@ -48,6 +48,11 @@ def add_exp_opts(p: argparse.ArgumentParser):
 
 def add_net_opts(p: argparse.ArgumentParser):
     g = p.add_argument_group("net")
+    g.add_argument("--model", default="hocnet", choices=["hocnet", "hamer"],
+                   help="hocnet: ResNet trunk and MLP heads, hand + object; "
+                        "hamer: HaMeR's ViT-H/16 trunk and transformer "
+                        "decoder, hand only (--backbone, --ncomps and the "
+                        "object flags are HOCNet's)")
     g.add_argument("--backbone", default="resnet18",
                    choices=["resnet18", "resnet34", "resnet50"])
     g.add_argument("--ncomps", type=int, default=15, help="MANO PCA comps")

@@ -33,6 +33,7 @@ from hocon_torch.data.factory import get_dataset
 from hocon_torch.data.pipeline import BatchLoader, WorkerEpochLoader, WorkerEvalLoader
 from hocon_torch.exp.args import save_args
 from hocon_torch.models.backbone import STAGE_SIZES as _IMPORT_STAGE_SIZES
+from hocon_torch.models.hamer import HaMeR
 from hocon_torch.models.hocnet import HOCNet
 from hocon_torch.train.checkpoints import CheckpointManager, restore_for_warm_start
 from hocon_torch.train.loop import epoch_pass
@@ -50,7 +51,15 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def build_model(args, mano, device: torch.device, seed: int = 0) -> HOCNet:
+def build_model(args, mano, device: torch.device, seed: int = 0) -> torch.nn.Module:
+    """The ``--model`` the flags describe, its weights from ``seed``, on
+    ``device``."""
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    if getattr(args, "model", "hocnet") == "hamer":
+        if args.use_objects:
+            raise ValueError("--model hamer has no object head: drop --use_objects")
+        return HaMeR(image_size=args.image_size, center_idx=args.center_idx, dtype=dtype,
+                     seed=seed, device=device)
     if getattr(args, "torch_ckpt", "") and args.use_objects and args.obj_rot_param != "axisang":
         print(
             "[hocon] --torch_ckpt implies --obj_rot_param axisang (the "
@@ -66,7 +75,7 @@ def build_model(args, mano, device: torch.device, seed: int = 0) -> HOCNet:
         obj_rot_param=args.obj_rot_param,
         backbone=args.backbone,
         freeze_batchnorm=args.freeze_batchnorm,
-        dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        dtype=dtype,
         seed=seed,
         device=device,
     )
@@ -86,6 +95,11 @@ def apply_torch_init(args, model, state):
         return state
     if trunk_path and ckpt_path:
         raise ValueError("--torch_trunk and --torch_ckpt are exclusive")
+    if getattr(args, "model", "hocnet") != "hocnet":
+        raise ValueError(
+            f"--torch_trunk / --torch_ckpt import ResNet weights into HOCNet; "
+            f"--model {args.model} has no ResNet trunk"
+        )
     if args.backbone not in _IMPORT_STAGE_SIZES:
         raise ValueError(
             f"torch import supports backbones {sorted(_IMPORT_STAGE_SIZES)}, "

@@ -289,11 +289,27 @@ def mano_forward(
     a joint of the standard 21-joint order, and the two exclude each other.
     """
     b = pose_pca.shape[0]
-    dtype = pose_pca.dtype
     full_pose = pca_to_full_pose(model, pose_pca, use_pca, flat_hand_mean)
     all_aa = torch.cat([global_rot, full_pose], dim=-1).reshape(b, 16, 3)
-    rots = rodrigues(all_aa)  # (B,16,3,3)
+    return mano_forward_rotmat(model, rodrigues(all_aa), betas, trans=trans,
+                               center_idx=center_idx, scale_mm=scale_mm)
 
+
+def mano_forward_rotmat(
+    model: ManoModel,
+    rots: torch.Tensor,
+    betas: torch.Tensor,
+    trans: torch.Tensor | None = None,
+    center_idx: int | None = None,
+    scale_mm: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """MANO forward from the 16 joints' rotation matrices (B, 16, 3, 3),
+    the root's first: ``mano_forward``'s body after Rodrigues, with its
+    ``trans``, ``center_idx`` and ``scale_mm``. A model that regresses
+    rotations (HaMeR's 6D) calls it directly, without a round trip through
+    axis-angle."""
+    b = rots.shape[0]
+    dtype = rots.dtype
     v_shaped = model.v_template[None] + torch.einsum(
         "vds,bs->bvd", model.shapedirs, betas
     )

@@ -1,4 +1,5 @@
-"""MANO's forward and backward replayed from CUDA graphs, for HOCNet.
+"""MANO's forward and backward replayed from CUDA graphs, for HOCNet and
+HaMeR.
 
 ``mano_forward`` launches about 130 small kernels forward and as many
 backward (the kinematic chain goes one joint at a time) for 0.6 ms of work
@@ -7,7 +8,9 @@ on an H100, so the card waits on the host's launches (PERF.md section 5).
 signature (``mano_signature``) into one CUDA graph for the forward and, when
 the inputs need gradients, one for the backward, and replays them after:
 each call is an input copy, one replay and an output copy, and its backward
-likewise.
+likewise. ``graphed_mano_rotmat`` does the same for ``mano_forward_rotmat``
+(MANO from the 16 joints' rotation matrices, HaMeR's entry), under
+signatures of its own in the same cache.
 
 A graph replays the kernels that eager mode launches, in the same order
 (the backward is captured from autograd's own backward of the same
@@ -30,7 +33,8 @@ call must run before the next call of the same signature: an older call's
 backward raises.
 
 ``graphed_mano_forward.captures`` counts the signatures captured and
-``graphed_mano_forward.replays`` the calls that replayed a forward graph.
+``graphed_mano_forward.replays`` the calls that replayed a forward graph,
+of both entries.
 """
 
 from __future__ import annotations
@@ -55,7 +59,8 @@ def _capture_stream(device: torch.device) -> torch.cuda.Stream:
 
 
 class ManoGraphs(dict):
-    """One owner's graphs (a HOCNet's), keyed by ``mano_signature``.
+    """One owner's graphs (a HOCNet's or a HaMeR's), keyed by the entry's
+    name and ``mano_signature``.
 
     Each entry holds the ``ManoModel`` it captured, whose tensors the graphs
     read by address. Not part of any ``state_dict``; a deep copy of the owner
@@ -90,8 +95,9 @@ class _Graph:
     """One signature's forward graph, and its backward graph when an input
     needs a gradient, with their static buffers."""
 
-    def __init__(self, model: ManoModel, inputs: tuple, grad: bool):
+    def __init__(self, body, model: ManoModel, inputs: tuple, grad: bool):
         dev = inputs[0].device
+        self.body = body
         self.model = model
         self.generation = 0
         self.inputs = tuple(_mirror(x, grad and x.requires_grad) for x in inputs)
@@ -119,7 +125,7 @@ class _Graph:
         self.out = tuple(o.detach() for o in out)
 
     def _call(self):
-        return mano_mod.mano_forward(self.model, *self.inputs, scale_mm=False)
+        return self.body(self.model, *self.inputs, scale_mm=False)
 
     @torch.no_grad()
     def load(self, inputs: tuple) -> None:
@@ -159,6 +165,23 @@ class _Replay(torch.autograd.Function):
         return (None,) + ctx.graph.backward(ctx.generation, grads)
 
 
+def _graphed(graphs: ManoGraphs, body, model: ManoModel, inputs: tuple):
+    """``body(model, *inputs, scale_mm=False)``: replayed from ``graphs`` on
+    CUDA inputs (captured on the signature's first call), run as it is on
+    CPU ones."""
+    if not inputs[0].is_cuda:
+        return body(model, *inputs, scale_mm=False)
+    sig = mano_signature(model, *inputs)
+    key = (body.__name__,) + sig
+    graph = graphs.get(key)
+    if graph is None:
+        graph = graphs[key] = _Graph(body, model, inputs, grad=sig[1])
+        graphed_mano_forward.captures += 1
+    if graph.bwd is None:
+        return graph.forward(inputs)
+    return _Replay.apply(graph, *inputs)
+
+
 def graphed_mano_forward(
     graphs: ManoGraphs,
     model: ManoModel,
@@ -169,17 +192,18 @@ def graphed_mano_forward(
     """``mano_forward(model, pose_pca, betas, global_rot, scale_mm=False)``:
     replayed from ``graphs`` on a CUDA input (captured on the signature's
     first call), run as it is on a CPU one."""
-    inputs = (pose_pca, betas, global_rot)
-    if not pose_pca.is_cuda:
-        return mano_mod.mano_forward(model, *inputs, scale_mm=False)
-    key = mano_signature(model, *inputs)
-    graph = graphs.get(key)
-    if graph is None:
-        graph = graphs[key] = _Graph(model, inputs, grad=key[1])
-        graphed_mano_forward.captures += 1
-    if graph.bwd is None:
-        return graph.forward(inputs)
-    return _Replay.apply(graph, *inputs)
+    return _graphed(graphs, mano_mod.mano_forward, model, (pose_pca, betas, global_rot))
+
+
+def graphed_mano_rotmat(
+    graphs: ManoGraphs,
+    model: ManoModel,
+    rots: torch.Tensor,
+    betas: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``mano_forward_rotmat(model, rots, betas, scale_mm=False)``, as
+    ``graphed_mano_forward`` runs ``mano_forward``."""
+    return _graphed(graphs, mano_mod.mano_forward_rotmat, model, (rots, betas))
 
 
 graphed_mano_forward.captures = 0

@@ -1,14 +1,16 @@
 """Train and eval steps.
 
 Port of ``hocon/train/steps.py``: ``warp_loss`` is the body of
-``make_warp_train_step``'s ``loss_fn`` (one HOCNet pass over [ref; tgt],
+``make_warp_train_step``'s ``loss_fn`` (one model pass over [ref; tgt],
 masked supervised losses, the photometric warp through kernels K1 / K3,
 whose backward runs K2 / K4), with the same arguments and term names;
 ``make_warp_train_step`` and ``make_train_step`` add the backward and the
 update (``hocon_torch.train.state``); ``eval_step`` is the forward of
 ``make_eval_step``, which wraps it as a ``(state, batch)`` step for
 ``epoch_pass``. Batches are dicts in the reference's layout (NHWC images,
-uint8 or normalized float), as numpy arrays or tensors.
+uint8 or normalized float), as numpy arrays or tensors. The model is any
+module with HOCNet's ``forward(images, camintr, mano, obj_verts_can)`` and
+output keys (``hocon_torch.models``: ``HOCNet``, ``HaMeR``).
 
 Model mode stands for the reference's ``train`` flag: the train steps put
 the model in training mode (``train=True``), so a HOCNet with

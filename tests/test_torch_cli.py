@@ -1,6 +1,8 @@
 """Port CLIs (``hocon_torch.cli``) vs ``hocon.cli``.
 
-The parsers take the reference's flags with its defaults. The entry points
+The parsers take the reference's flags with its defaults, plus the port's
+own ``--model`` (``PORT_ONLY``), whose default is the reference's one
+model. The entry points
 run end to end on the CPU at 32 px: ``trainwarp`` trains 2 steps with
 eval and a snapshot, a second call auto-restores it and trains 2 more,
 ``evaluate --resume`` reproduces the trainer's last val MPJPE, ``predict``
@@ -35,6 +37,19 @@ SMALL = ["--dataset", "synthetic", "--image_size", "32", "--synth_videos", "2",
          "--synth_frames", "4", "--no_bf16"]
 
 
+# Flags of the port alone, with the defaults that mean what the reference
+# does: HOCNet, its one model.
+PORT_ONLY = {"model": "hocnet"}
+
+
+def _shared(ns) -> dict:
+    """The parsed flags that the reference has too; the port's own flags
+    must hold their defaults."""
+    got = vars(ns)
+    assert {k: got.pop(k) for k in PORT_ONLY} == PORT_ONLY
+    return got
+
+
 def _ref_parser(name):
     """The parser ``hocon.cli.<name>.main`` builds."""
     p = argparse.ArgumentParser(name)
@@ -53,9 +68,9 @@ def _ref_parser(name):
 @pytest.mark.parametrize("name", list(CLIS))
 def test_parsers_match_reference(name):
     port = CLIS[name].build_parser()
-    assert vars(port.parse_args([])) == vars(_ref_parser(name).parse_args([]))
+    assert _shared(port.parse_args([])) == vars(_ref_parser(name).parse_args([]))
     argv = ["--no_freeze_batchnorm", "--lr", "1e-3", "--use_objects", "--no_bf16"]
-    assert vars(port.parse_args(argv)) == vars(_ref_parser(name).parse_args(argv))
+    assert _shared(port.parse_args(argv)) == vars(_ref_parser(name).parse_args(argv))
 
 
 @pytest.fixture(scope="module")

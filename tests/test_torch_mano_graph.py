@@ -164,3 +164,29 @@ def test_cache_stays_out_of_state_dict_and_copies(right):
     graphs = MG.ManoGraphs()
     verts, joints = MG.graphed_mano_forward(graphs, right, *inputs)
     assert len(graphs) == 0 and verts.shape == (2, 778, 3) and joints.shape == (2, 21, 3)
+
+
+def test_rotmat_signature_runs_eagerly_on_the_cpu(right):
+    """HaMeR's entry (``graphed_mano_rotmat``, MANO from rotation matrices)
+    on the CPU: ``mano_forward_rotmat`` itself, bit for bit with its input
+    gradients, no capture, the counters at 0 and the cache empty."""
+    captures, replays = MG.graphed_mano_forward.captures, MG.graphed_mano_forward.replays
+    gen = torch.Generator().manual_seed(4)
+    six = torch.randn(3, 16, 6, generator=gen).requires_grad_()
+    betas = torch.randn(3, 10, generator=gen).requires_grad_()
+    rots = TR.rot6d_to_matrix(six)  # a transposed view, as HaMeR's
+    graphs = MG.ManoGraphs()
+    gv = torch.randn(3, 778, 3, generator=gen)
+
+    def run(fn):
+        six.grad = betas.grad = None
+        verts, joints = fn()
+        (verts * gv).sum().add(joints.sum()).backward(retain_graph=True)
+        return verts, joints, six.grad, betas.grad
+
+    got = run(lambda: MG.graphed_mano_rotmat(graphs, right, rots, betas))
+    want = run(lambda: TM.mano_forward_rotmat(right, rots, betas, scale_mm=False))
+    assert all(_same_bits(a, b) for a, b in zip(got, want))
+    assert MG.graphed_mano_forward.captures == captures == 0
+    assert MG.graphed_mano_forward.replays == replays == 0
+    assert len(graphs) == 0
