@@ -162,6 +162,22 @@ Phases, each reported on its own line:
    rotation matrices replayed from CUDA graphs (``graphed_mano_rotmat``) on
    seeded rotations against ``mano_forward_rotmat``, bit for bit
    forward and backward, one capture and one replay a call.
+19. model_graph — HOCNet's trunk and heads replayed from CUDA graphs
+   (``hocon_torch.geometry.mano_graph.graphed_model``) against eager mode
+   (trunk, heads and MANO run eagerly) from the same weights, cuDNN
+   deterministic: ``MODEL_STEPS`` supervised steps, warp steps and
+   supervised steps with trainable batch norm, where the terms, HOCNet's
+   outputs and their layout, every parameter's gradient and the parameters
+   and buffers after each step must agree bit for bit, with one capture
+   per signature and one replay per call; a backward onto held gradients,
+   then two without zeroing (the second onto the first's own buffers),
+   must give eager mode's sums; the first call's outputs must be unchanged
+   after a second call, whose replay must make the first call's backward
+   raise; a capture (eval mode) while the first call's autograd graph is
+   alive must give eager mode's outputs; one graphed forward under ``torch.profiler`` must make no
+   ``cudaStreamSynchronize`` / ``cudaEventSynchronize`` and two graph
+   launches (the model's and MANO's), eager mode's counts beside it; eager
+   and graphed forward + backward are timed in turns.
 
 After the phases, and after a failed one too, the script stops every
 process it started (the workers' forkserver and multiprocessing's resource
@@ -2523,6 +2539,250 @@ def phase_mano_graph(torch, device, batch, smi: str) -> None:
 
 
 
+MODEL_STEPS = 3  # supervised and warp train steps, graphed against eager
+MODEL_TIMED_CALLS = 20
+
+
+def phase_model_graph(torch, device, batch, smi: str) -> None:
+    """HOCNet's trunk and heads replayed from CUDA graphs against eager mode,
+    bit for bit (module note, phase 19)."""
+    import contextlib
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from hocon_torch.geometry import mano_graph as MG
+    from hocon_torch.geometry.mano import mano_forward, synthetic_mano_model
+    from hocon_torch.models import hocnet as hocnet_mod
+    from hocon_torch.models.hocnet import HOCNet
+    from hocon_torch.models.losses import total_supervised_loss
+    from hocon_torch.train.state import create_train_state, make_optimizer
+    from hocon_torch.train.steps import (_device_images, _gt_from_batch, batch_to_device,
+                                         make_train_step, make_warp_train_step)
+
+    @contextlib.contextmanager
+    def eager():
+        """The trunk, the heads and MANO as eager mode runs them."""
+        graphed = hocnet_mod.graphed_model, hocnet_mod.graphed_mano_forward
+        hocnet_mod.graphed_model = lambda graphs, module, fn, inputs, key=(): fn(*inputs)
+        hocnet_mod.graphed_mano_forward = (
+            lambda graphs, mano, pose, betas, rot: mano_forward(mano, pose, betas, rot,
+                                                                scale_mm=False))
+        try:
+            yield
+        finally:
+            hocnet_mod.graphed_model, hocnet_mod.graphed_mano_forward = graphed
+
+    def counts():
+        return (MG.graphed_model.captures, MG.graphed_model.replays,
+                MG.graphed_mano_forward.captures, MG.graphed_mano_forward.replays)
+
+    mano = synthetic_mano_model(0, device=device)
+    batch = batch_to_device(batch, torch.device(device))
+    views = [batch, {"ref": batch["tgt"], "tgt": batch["ref"]}]
+
+    def new_model(freeze: bool = True):
+        return HOCNet(with_object=True, dtype=torch.bfloat16, seed=0, freeze_batchnorm=freeze,
+                      device=device)
+
+    def train(kind: str, model) -> list:
+        """``MODEL_STEPS`` train steps of ``kind`` on the batch and its swap:
+        per step the terms, HOCNet's outputs (and their layout), every
+        parameter's gradient, the parameters and buffers after it."""
+        outs = []
+        hook = model.register_forward_hook(lambda m, args, out: outs.append(out))
+        spec = make_optimizer("adam", 1e-4)
+        state = create_train_state(model, spec)
+        if kind == "warp":
+            step = make_warp_train_step(model, mano, spec, image_size=(RES, RES), device=device)
+        else:
+            sup = make_train_step(model, mano, spec, device=device)
+
+            def step(st, b):
+                return sup(st, b["ref"])
+        got = []
+        try:
+            for t in range(MODEL_STEPS):
+                outs.clear()
+                state, terms = step(state, views[t % 2])
+                rec = {f"term.{k}": torch.as_tensor(v).detach().clone() for k, v in terms.items()}
+                rec.update((f"out.{k}", v.detach().clone()) for k, v in outs[0].items())
+                rec.update((f"grad.{k}", p.grad.clone()) for k, p in model.named_parameters())
+                rec.update((f"param.{k}", p.detach().clone()) for k, p in model.named_parameters())
+                rec.update((f"buffer.{k}", b.clone()) for k, b in model.named_buffers())
+                rec["layout"] = {k: (tuple(v.shape), v.stride(), v.storage_offset())
+                                 for k, v in outs[0].items()}
+                got.append(rec)
+        finally:
+            hook.remove()
+        torch.cuda.synchronize()
+        return got
+
+    def compare(got: list, want: list) -> list:
+        bad = []
+        for g, w in zip(got, want):
+            g, w = dict(g), dict(w)
+            if g.pop("layout") != w.pop("layout"):
+                bad.append("layout")
+            bad.append(differing(torch, g, w))
+        return bad
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the trunk's gradients repeat between runs
+    try:
+        # (what, step kind, frozen batch norm): each case is one signature.
+        cases = [("supervised step, 16 images", "sup", True),
+                 ("warp step, 32 images", "warp", True),
+                 ("supervised step, trainable batch norm", "sup", False)]
+        for n, (what, kind, freeze) in enumerate(cases):
+            base = new_model(freeze)
+            twin = copy.deepcopy(base)
+            if len(twin.model_graphs) or len(twin.mano_graphs):
+                fail("model_graph: a deep copy kept graphs")
+            with eager():
+                want = train(kind, twin)
+                if n == 0:
+                    again = train(kind, copy.deepcopy(new_model(freeze)))
+                    if any(compare(again, want)):
+                        fail(f"model_graph: eager mode does not repeat its own bits: "
+                             f"{compare(again, want)}")
+            c0 = counts()
+            got = train(kind, base)
+            c1 = counts()
+            captured, replayed = c1[0] - c0[0], c1[1] - c0[1]
+            bad = compare(got, want)
+            n_grads = sum(k.startswith("grad.") for k in want[0])
+            n_outs = sum(k.startswith("out.") for k in want[0])
+            log(f"model_graph: {what}: {MODEL_STEPS} steps graphed against eager: {captured} "
+                f"capture, {replayed} replays (MANO {c1[2] - c0[2]}, {c1[3] - c0[3]}); the "
+                f"terms, {n_outs} outputs with their layout, {n_grads} parameter gradients, the "
+                f"parameters and buffers after each step: {sum(map(len, bad))} differ")
+            if any(bad):
+                fail(f"model_graph: {what}: differing bits {bad}")
+            if captured != 1 or replayed != MODEL_STEPS or len(base.model_graphs) != 1:
+                fail(f"model_graph: {what}: {captured} captures and {replayed} replays over "
+                     f"{MODEL_STEPS} calls ({len(base.model_graphs)} cached), want 1 and "
+                     f"{MODEL_STEPS}")
+
+        # Two backwards without zeroing, from a held value, into the last
+        # backward's own buffers: the sums of eager mode.
+        def sup_loss(model, view):
+            out = model(_device_images(view["image"]), view["camintr"], mano,
+                        view["obj_verts_can"])
+            return total_supervised_loss(out, _gt_from_batch(view), view["sup_mask"])[0], out
+
+        def accumulate(model):
+            model.train()
+            got = {}
+            for p in model.parameters():
+                p.grad = torch.full_like(p, 0.5)
+            for n, view in enumerate((batch["ref"], batch["tgt"], batch["ref"])):
+                loss, out = sup_loss(model, view)
+                loss.backward()
+                got.update((f"{n}.grad.{k}", p.grad.clone()) for k, p in model.named_parameters())
+                if n == 0:
+                    for p in model.parameters():
+                        p.grad = None
+            torch.cuda.synchronize()
+            return got
+
+        base = new_model()
+        twin = copy.deepcopy(base)
+        with eager():
+            want = accumulate(twin)
+        c0 = counts()
+        got = accumulate(base)
+        c1 = counts()
+        bad = differing(torch, got, want)
+        log(f"model_graph: backward onto held gradients, then twice without zeroing (the "
+            f"second onto the first's buffers): {len(want)} gradients against eager mode, "
+            f"{len(bad)} differ; {c1[0] - c0[0]} capture, {c1[1] - c0[1]} replays")
+        if bad or (c1[0] - c0[0], c1[1] - c0[1]) != (1, 3):
+            fail(f"model_graph: accumulated gradients {bad[:8]}, counts {c1[0] - c0[0]}, "
+                 f"{c1[1] - c0[1]}")
+
+        # The first call's outputs after a second call; a capture (eval
+        # mode, with grad) while their autograd graph is alive; a stale
+        # backward.
+        with eager():
+            _, first_want = sup_loss(twin, batch["ref"])
+            twin.eval()
+            _, eval_want = sup_loss(twin, batch["tgt"])
+        _, first = sup_loss(base, batch["ref"])
+        sup_loss(base, batch["tgt"])
+        kept = differing(torch, dict(first), dict(first_want))
+        c0 = counts()
+        base.eval()
+        _, eval_got = sup_loss(base, batch["tgt"])
+        base.train()
+        c1 = counts()
+        bad = differing(torch, dict(eval_got), dict(eval_want))
+        log(f"model_graph: eval mode with grad, captured while an earlier call's graph is "
+            f"alive: {c1[0] - c0[0]} capture, outputs against eager mode: {len(bad)} differ")
+        if bad or c1[0] - c0[0] != 1:
+            fail(f"model_graph: eval-mode capture: {c1[0] - c0[0]} captures, {bad} differ")
+        try:
+            (first["trans"].sum() + first["pose_pca"].sum()).backward()
+        except RuntimeError as e:
+            stale = "graphed_model" in str(e) and "older call" in str(e)
+        else:
+            stale = False
+        log(f"model_graph: the first call's outputs after the second: {len(kept)} differ; the "
+            f"first call's backward after the second call raised: {stale}")
+        if kept or not stale:
+            fail(f"model_graph: first call's outputs {kept}, stale backward raised {stale}")
+
+        # Launches and syncs of one forward, eager and graphed, under the
+        # profiler; then forward + backward per call, timed in turns.
+        view = batch["ref"]
+        images = _device_images(view["image"])
+
+        def call(model):
+            out = model(images, view["camintr"], mano, view["obj_verts_can"])
+            return out["verts_cam"].square().sum() + out["obj_verts_cam"].sum()
+
+        model_e, model_g = copy.deepcopy(base), base
+        prof_counts = {}
+        for name, model in (("eager", model_e), ("graphed", model_g)):
+            ctx = eager() if name == "eager" else contextlib.nullcontext()
+            with ctx:
+                call(model).backward()
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    call(model)
+                    torch.cuda.synchronize()
+            ev = prof.events()
+            prof_counts[name] = (
+                sum(1 for e in ev if e.name in ("cudaStreamSynchronize", "cudaEventSynchronize")),
+                sum(1 for e in ev if e.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                "cudaLaunchKernelExC")),
+                sum(1 for e in ev if e.name == "cudaGraphLaunch"),
+                sum(1 for e in ev if e.device_type.name == "CUDA"))
+        ms = {}
+        for name in ("eager", "graphed", "graphed", "eager"):
+            model = model_e if name == "eager" else model_g
+            with eager() if name == "eager" else contextlib.nullcontext():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(MODEL_TIMED_CALLS):
+                    model.zero_grad(set_to_none=True)
+                    call(model).backward()
+                torch.cuda.synchronize()
+            ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e3 / MODEL_TIMED_CALLS)
+        (se, le, ge, ke), (sg, lg, gg, kg) = prof_counts["eager"], prof_counts["graphed"]
+        log(f"model_graph: one HOCNet forward, 16 images: eager {se} syncs, {le} kernel "
+            f"launches, {ke} device ops; graphed {sg} syncs, {lg} kernel launches, {gg} graph "
+            f"launches, {kg} device ops; forward + backward per call (wall, "
+            f"{MODEL_TIMED_CALLS} calls, in turns): eager {ms['eager'][0]:.2f} / "
+            f"{ms['eager'][1]:.2f} ms, graphed {ms['graphed'][0]:.2f} / {ms['graphed'][1]:.2f} "
+            f"ms; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card {smi}")
+        if sg or gg != 2:
+            fail(f"model_graph: {sg} syncs and {gg} graph launches graphed (want 0 and 2: the "
+                 f"model's and MANO's)")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
 def descendants(pid: int) -> dict:
     """The processes under ``pid`` (children, their children, ...), from
     ``/proc``: pid -> (name, state)."""
@@ -2713,6 +2973,7 @@ def run_phases(torch, out_dir: str) -> list:
     phase_ddp(torch, device, batch, smi, out_dir)
     phase_profile(torch, device, smi, train_per_step)
     phase_mano_graph(torch, device, batch, smi)
+    phase_model_graph(torch, device, batch, smi)
     phase_hamer(torch, device, smi)
     for kern, name in ((k1, "raster_fwd"), (k1c3, "raster_fwd C=3"), (k2, "raster_bwd"),
                        (k3, "sample_fwd"), (k4, "sample_bwd")):

@@ -1,5 +1,6 @@
 """MANO's forward and backward replayed from CUDA graphs, for HOCNet and
-HaMeR.
+HaMeR, and the same mechanism for a module's call with its parameters
+(HOCNet's trunk and heads).
 
 ``mano_forward`` launches about 130 small kernels forward and as many
 backward (the kinematic chain goes one joint at a time) for 0.6 ms of work
@@ -10,7 +11,10 @@ the inputs need gradients, one for the backward, and replays them after:
 each call is an input copy, one replay and an output copy, and its backward
 likewise. ``graphed_mano_rotmat`` does the same for ``mano_forward_rotmat``
 (MANO from the 16 joints' rotation matrices, HaMeR's entry), under
-signatures of its own in the same cache.
+signatures of its own in the same cache. ``graphed_model`` does it for a
+function of a module's parameters: the signature adds each parameter's
+address, shape, dtype and ``requires_grad`` (``graph_signature``), and the
+backward graph gives the parameters' gradients too.
 
 A graph replays the kernels that eager mode launches, in the same order
 (the backward is captured from autograd's own backward of the same
@@ -18,27 +22,48 @@ function), so the outputs and gradients are eager mode's bit for bit:
 
 - the inputs are copied into buffers laid out as the caller's tensors
   (shape, strides, offset), so the capture takes eager mode's kernels for
-  the strided slices of the pose head's output;
+  the strided slices of the pose head's output; each call's outputs are
+  copies laid out as the captured ones, views of one storage sharing one
+  copy of it (the pose head's slices stay slices of one tensor);
 - each input buffer requires grad as its input does, so autograd saves
   what eager mode saves;
 - a warm-up on the capture's stream makes the library handles and
   workspaces before the capture, as eager mode had them; the cuBLAS
   workspaces of that one stream per device (one for the host thread's
-  handle, one for autograd's) are the graphs' main memory cost.
+  handle, one for autograd's) are the graphs' main memory cost. Tensors
+  the call updates in place (batch norm's running statistics) are put back
+  after the warm-ups, and the autocast cache is emptied before and after
+  the capture, so the graph holds its own casts and no cached cast points
+  into its memory;
+- a parameter's gradient is laid out as the parameter, inside the graph,
+  as ``AccumulateGrad`` lays out eager mode's, and is handed over as a
+  detached alias of the graph's buffer, which ``AccumulateGrad`` takes as
+  the ``.grad`` without a copy (``torch.cuda.make_graphed_callables`` does
+  the same). A backward into a ``.grad`` that holds a value adds to it as
+  eager mode does; where that ``.grad`` is the buffer itself, it is copied
+  out first. The backward graph has a memory pool of its own, so no later
+  forward replay writes over the buffers. An output the loss does not use
+  takes a zero gradient, so a parameter that only it reaches gets zeros
+  where eager mode leaves None (the train step's ``apply_gradients`` gives
+  such a parameter zeros either way).
 
-A CPU input runs ``mano_forward`` itself. Each call returns tensors of its
-own, and so does each backward. A forward replay overwrites what the
-previous replay of that graph saved for its backward, so the backward of a
-call must run before the next call of the same signature: an older call's
+A CPU input runs the function itself. Each call returns tensors of its
+own; the input gradients are copies, the parameter gradients the aliases
+above, which the next backward of the signature overwrites (as eager mode's
+next step replaces them). A forward replay overwrites what the previous
+replay of that graph saved for its backward, so the backward of a call
+must run before the next call of the same signature: an older call's
 backward raises.
 
-``graphed_mano_forward.captures`` counts the signatures captured and
-``graphed_mano_forward.replays`` the calls that replayed a forward graph,
-of both entries.
+``graphed_mano_forward.captures`` counts the MANO signatures captured and
+``graphed_mano_forward.replays`` the calls that replayed a MANO forward
+graph, of both entries; ``graphed_model.captures`` and
+``graphed_model.replays`` count ``graphed_model``'s.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -60,72 +85,168 @@ def _capture_stream(device: torch.device) -> torch.cuda.Stream:
 
 class ManoGraphs(dict):
     """One owner's graphs (a HOCNet's or a HaMeR's), keyed by the entry's
-    name and ``mano_signature``.
+    name and its signature.
 
-    Each entry holds the ``ManoModel`` it captured, whose tensors the graphs
-    read by address. Not part of any ``state_dict``; a deep copy of the owner
-    gets an empty cache (a CUDA graph cannot be copied).
+    Each entry holds what it captured (the ``ManoModel``, the module), whose
+    tensors the graphs read by address. Not part of any ``state_dict``; a
+    deep copy of the owner gets an empty cache (a CUDA graph cannot be
+    copied).
     """
 
     def __deepcopy__(self, memo) -> "ManoGraphs":
         return ManoGraphs()
 
 
-def mano_signature(model: ManoModel, *inputs: torch.Tensor) -> tuple:
+def graph_signature(owner, inputs: tuple, params: tuple = ()) -> tuple:
     """What a capture fixes: the device, the grad and autocast modes, the
-    MANO model (by identity: the graphs read its tensors) and each input's
-    shape, strides, offset, dtype and whether it needs a gradient."""
+    owner (by identity: the graphs read its tensors), each input's shape,
+    strides, offset, dtype and whether it needs a gradient and, with
+    ``params``, each parameter's address, shape, dtype and whether it needs
+    a gradient (a ``.to()`` or a replaced parameter captures anew)."""
     dev = inputs[0].device
-    grad = torch.is_grad_enabled() and any(x.requires_grad for x in inputs)
-    return (dev, grad, torch.is_inference_mode_enabled(),
-            torch.is_autocast_enabled(dev.type), torch.get_autocast_dtype(dev.type), id(model),
-            tuple((x.shape, x.stride(), x.storage_offset(), x.dtype, grad and x.requires_grad)
-                  for x in inputs))
+    grad = torch.is_grad_enabled() and any(x.requires_grad for x in (*inputs, *params))
+    sig = (dev, grad, torch.is_inference_mode_enabled(),
+           torch.is_autocast_enabled(dev.type), torch.get_autocast_dtype(dev.type), id(owner),
+           tuple((x.shape, x.stride(), x.storage_offset(), x.dtype, grad and x.requires_grad)
+                 for x in inputs))
+    if params:
+        sig += (tuple((p.data_ptr(), p.shape, p.dtype, grad and p.requires_grad)
+                      for p in params),)
+    return sig
+
+
+def mano_signature(model: ManoModel, *inputs: torch.Tensor) -> tuple:
+    """``graph_signature`` of a MANO call: the MANO model and its inputs."""
+    return graph_signature(model, inputs)
+
+
+def _extent(x: torch.Tensor) -> int:
+    """Elements of ``x``'s storage from its start to ``x``'s last element."""
+    if not x.numel():
+        return x.storage_offset()
+    return x.storage_offset() + 1 + sum((n - 1) * s for n, s in zip(x.shape, x.stride()))
 
 
 def _mirror(x: torch.Tensor, requires_grad: bool) -> torch.Tensor:
     """An empty tensor laid out as ``x``: its shape, strides and offset into
     a storage of its own."""
-    extent = 1 + sum((n - 1) * s for n, s in zip(x.shape, x.stride())) if x.numel() else 0
-    buf = torch.empty(x.storage_offset() + extent, dtype=x.dtype, device=x.device)
+    buf = torch.empty(_extent(x), dtype=x.dtype, device=x.device)
     return buf.as_strided(x.shape, x.stride(), x.storage_offset()).requires_grad_(requires_grad)
+
+
+def _fresh(outs: tuple) -> tuple:
+    """Copies of ``outs`` laid out as they are, one copy kernel a storage:
+    a dense output alone on its storage is copied as ``clone`` copies it,
+    the views of one storage become views of one copy of it."""
+    def key(x):
+        return x.untyped_storage().data_ptr(), x.dtype
+
+    keys = [key(o) for o in outs]
+    copies, fresh = {}, []
+    for o, k in zip(outs, keys):
+        if keys.count(k) == 1 and o.storage_offset() == 0 and _extent(o) == o.numel():
+            fresh.append(torch.empty_strided(o.shape, o.stride(), dtype=o.dtype,
+                                             device=o.device).copy_(o))
+            continue
+        if k not in copies:
+            n = max(_extent(x) for x, kx in zip(outs, keys) if kx == k)
+            copies[k] = o.as_strided((n,), (1,), 0).clone()
+        fresh.append(copies[k].as_strided(o.shape, o.stride(), o.storage_offset()))
+    return tuple(fresh)
+
+
+def _as_accumulated(g: torch.Tensor | None, p: torch.Tensor) -> torch.Tensor | None:
+    """``g`` laid out as ``AccumulateGrad`` lays out a new gradient of
+    ``p``: as is when its strides are ``p``'s, else copied into ``p``'s."""
+    if g is None or g.stride() == p.stride():
+        return g
+    return torch.empty_strided(p.shape, p.stride(), dtype=g.dtype, device=g.device).copy_(g)
+
+
+@contextlib.contextmanager
+def _standing_in(module, params: tuple, stand_ins: tuple):
+    """``module``'s parameters ``params`` replaced by ``stand_ins`` for the
+    block."""
+    if module is None:
+        yield
+        return
+    swap = {id(p): q for p, q in zip(params, stand_ins)}
+    slots = [(m, name, p) for m in module.modules() for name, p in m._parameters.items()
+             if id(p) in swap]
+    for m, name, p in slots:
+        m._parameters[name] = swap[id(p)]
+    try:
+        yield
+    finally:
+        for m, name, p in slots:
+            m._parameters[name] = p
 
 
 class _Graph:
     """One signature's forward graph, and its backward graph when an input
-    needs a gradient, with their static buffers."""
+    or a parameter needs a gradient, with their static buffers."""
 
-    def __init__(self, body, model: ManoModel, inputs: tuple, grad: bool):
+    def __init__(self, fn, inputs: tuple, grad: bool, counter, module=None):
         dev = inputs[0].device
-        self.body = body
-        self.model = model
+        self.fn = fn
+        self.counter = counter
         self.generation = 0
         self.inputs = tuple(_mirror(x, grad and x.requires_grad) for x in inputs)
-        self.wants = tuple(x for x in self.inputs if x.requires_grad)
+        params = () if module is None else tuple(module.parameters())
+        state = () if module is None else tuple(module.buffers())
+        # The capture's parameters are stand-ins on the same storage: leaves
+        # of their own, so no autograd node of a parameter kept alive from an
+        # eager call (bound to the caller's stream) enters the capture.
+        stand_ins = tuple(torch.nn.Parameter(p.detach(), requires_grad=p.requires_grad)
+                          for p in params)
+        # Each of the replay's arguments (inputs, then parameters): its index
+        # in ``wants``, the leaves whose gradients the backward graph gives,
+        # or None.
+        wants, self.slots, self.params = [], [], []
+        for x, arg in zip((*self.inputs, *stand_ins), (*self.inputs, *params)):
+            self.slots.append(len(wants) if grad and x.requires_grad else None)
+            if self.slots[-1] is not None:
+                wants.append(x)
+                if arg is not x:
+                    self.params.append(arg)
+        self.wants = tuple(wants)
+        self.n_in = len(self.wants) - len(self.params)
         self.load(inputs)
-        with torch.cuda.device(dev):
+        with torch.cuda.device(dev), _standing_in(module, params, stand_ins):
             stream = _capture_stream(dev)
+            kept = [t.clone() for t in state]
             stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(stream):
                 for _ in range(WARMUP_CALLS):
-                    out = self._call()
+                    out = self.fn(*self.inputs)
                     if self.wants:
-                        torch.autograd.grad(out, self.wants, [torch.ones_like(o) for o in out])
+                        diff = [o for o in out if o.requires_grad]
+                        torch.autograd.grad(diff, self.wants, [torch.ones_like(o) for o in diff],
+                                            allow_unused=True)
+                with torch.no_grad():
+                    for t, k in zip(state, kept):
+                        t.copy_(k)
             torch.cuda.current_stream(dev).wait_stream(stream)
+            del kept
+            torch.clear_autocast_cache()
             self.fwd = torch.cuda.CUDAGraph()
             with torch.cuda.graph(self.fwd, stream=stream, capture_error_mode="thread_local"):
-                out = self._call()
+                out = self.fn(*self.inputs)
+            torch.clear_autocast_cache()
+            self.diff = tuple(i for i, o in enumerate(out) if o.requires_grad)
             self.bwd = None
             if self.wants:
-                self.grad_out = tuple(torch.empty_like(o) for o in out)
+                diff = [out[i] for i in self.diff]
+                self.grad_out = tuple(torch.empty_like(o) for o in diff)
                 self.bwd = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(self.bwd, pool=self.fwd.pool(), stream=stream,
-                                      capture_error_mode="thread_local"):
-                    self.grad_in = torch.autograd.grad(out, self.wants, self.grad_out)
+                # A pool of its own: no forward replay writes where the
+                # parameters' gradients are kept.
+                with torch.cuda.graph(self.bwd, stream=stream, capture_error_mode="thread_local"):
+                    grads = torch.autograd.grad(diff, self.wants, self.grad_out,
+                                                allow_unused=True)
+                    self.grad_in = grads[:self.n_in] + tuple(
+                        _as_accumulated(g, p) for g, p in zip(grads[self.n_in:], self.params))
         self.out = tuple(o.detach() for o in out)
-
-    def _call(self):
-        return self.body(self.model, *self.inputs, scale_mm=False)
 
     @torch.no_grad()
     def load(self, inputs: tuple) -> None:
@@ -136,26 +257,32 @@ class _Graph:
         self.load(inputs)
         self.fwd.replay()
         self.generation += 1
-        graphed_mano_forward.replays += 1
-        return tuple(o.clone() for o in self.out)
+        self.counter.replays += 1
+        return _fresh(self.out)
 
     def backward(self, generation: int, grads: tuple) -> tuple:
         if generation != self.generation:
             raise RuntimeError(
-                "graphed_mano_forward: the backward of an older call of this signature; a "
+                f"{self.counter.__name__}: the backward of an older call of this signature; a "
                 "later call's replay overwrote what it saved")
-        for buf, g in zip(self.grad_out, grads):
-            buf.copy_(g)
+        for buf, i in zip(self.grad_out, self.diff):
+            buf.copy_(grads[i])
+        for p, g in zip(self.params, self.grad_in[self.n_in:]):
+            if p.grad is not None and g is not None and (
+                    p.grad.untyped_storage().data_ptr() == g.untyped_storage().data_ptr()):
+                p.grad = p.grad.clone()  # the last backward's alias: keep its sum
         self.bwd.replay()
-        got = iter(g.clone() for g in self.grad_in)
-        return tuple(next(got) if x.requires_grad else None for x in self.inputs)
+        got = [None if g is None else g.clone() if j < self.n_in else g.detach()
+               for j, g in enumerate(self.grad_in)]
+        return tuple(None if s is None else got[s] for s in self.slots)
 
 
 class _Replay(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, graph: _Graph, *inputs):
+    def forward(ctx, graph: _Graph, *args):
         ctx.graph = graph
-        out = graph.forward(inputs)
+        out = graph.forward(args[:len(graph.inputs)])
+        ctx.mark_non_differentiable(*(o for i, o in enumerate(out) if i not in graph.diff))
         ctx.generation = graph.generation
         return out
 
@@ -165,21 +292,29 @@ class _Replay(torch.autograd.Function):
         return (None,) + ctx.graph.backward(ctx.generation, grads)
 
 
-def _graphed(graphs: ManoGraphs, body, model: ManoModel, inputs: tuple):
+def _graphed(graphs: ManoGraphs, key: tuple, grad: bool, fn, inputs: tuple, counter,
+             module=None, params: tuple = ()):
+    """``fn(*inputs)`` replayed from ``graphs[key]``, captured on the key's
+    first call (``grad``: whether the signature takes gradients; ``params``:
+    ``module``'s parameters)."""
+    graph = graphs.get(key)
+    if graph is None:
+        graph = graphs[key] = _Graph(fn, inputs, grad, counter, module)
+        counter.captures += 1
+    if graph.bwd is None:
+        return graph.forward(inputs)
+    return _Replay.apply(graph, *inputs, *params)
+
+
+def _graphed_mano(graphs: ManoGraphs, body, model: ManoModel, inputs: tuple):
     """``body(model, *inputs, scale_mm=False)``: replayed from ``graphs`` on
     CUDA inputs (captured on the signature's first call), run as it is on
     CPU ones."""
     if not inputs[0].is_cuda:
         return body(model, *inputs, scale_mm=False)
     sig = mano_signature(model, *inputs)
-    key = (body.__name__,) + sig
-    graph = graphs.get(key)
-    if graph is None:
-        graph = graphs[key] = _Graph(body, model, inputs, grad=sig[1])
-        graphed_mano_forward.captures += 1
-    if graph.bwd is None:
-        return graph.forward(inputs)
-    return _Replay.apply(graph, *inputs)
+    return _graphed(graphs, (body.__name__,) + sig, sig[1],
+                    functools.partial(body, model, scale_mm=False), inputs, graphed_mano_forward)
 
 
 def graphed_mano_forward(
@@ -192,7 +327,7 @@ def graphed_mano_forward(
     """``mano_forward(model, pose_pca, betas, global_rot, scale_mm=False)``:
     replayed from ``graphs`` on a CUDA input (captured on the signature's
     first call), run as it is on a CPU one."""
-    return _graphed(graphs, mano_mod.mano_forward, model, (pose_pca, betas, global_rot))
+    return _graphed_mano(graphs, mano_mod.mano_forward, model, (pose_pca, betas, global_rot))
 
 
 def graphed_mano_rotmat(
@@ -203,8 +338,24 @@ def graphed_mano_rotmat(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``mano_forward_rotmat(model, rots, betas, scale_mm=False)``, as
     ``graphed_mano_forward`` runs ``mano_forward``."""
-    return _graphed(graphs, mano_mod.mano_forward_rotmat, model, (rots, betas))
+    return _graphed_mano(graphs, mano_mod.mano_forward_rotmat, model, (rots, betas))
+
+
+def graphed_model(graphs: ManoGraphs, module: torch.nn.Module, fn, inputs: tuple,
+                  key: tuple = ()) -> tuple:
+    """``fn(*inputs)``, a function of ``module``'s parameters and buffers
+    that returns a tuple of tensors: replayed from ``graphs`` on CUDA inputs
+    (captured on the signature's first call), run as it is on CPU ones.
+    ``key`` adds what else the call depends on (the module's modes); the
+    signature is ``graph_signature`` over the module's parameters."""
+    if not inputs[0].is_cuda:
+        return fn(*inputs)
+    params = tuple(module.parameters())
+    sig = graph_signature(module, inputs, params)
+    return _graphed(graphs, key + sig, sig[1], fn, inputs, graphed_model, module, params)
 
 
 graphed_mano_forward.captures = 0
 graphed_mano_forward.replays = 0
+graphed_model.captures = 0
+graphed_model.replays = 0

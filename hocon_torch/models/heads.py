@@ -7,6 +7,7 @@ are ``layers.{i}``, the counterpart of Flax's ``Dense_{i}``.
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
@@ -15,6 +16,15 @@ from torch import nn
 
 from hocon_torch.geometry.rot import rodrigues, rot6d_to_matrix
 from hocon_torch.models.backbone import lecun_normal_
+
+
+@functools.cache
+def _constant(values: tuple[float, ...], device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """``values`` as a tensor on ``device``, made once per (values, device,
+    dtype): ``new_tensor`` copies from the host, and waits on the stream, at
+    every call (and a CUDA graph cannot hold that copy). The sums with it
+    give ``new_tensor``'s bits."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 class MLP(nn.Module):
@@ -72,7 +82,7 @@ class AbsoluteHead(nn.Module):
 
     def forward(self, feats: torch.Tensor) -> torch.Tensor:
         out = self.trans_mlp(feats)
-        return out + out.new_tensor([0.0, 0.0, self.z_init])
+        return out + _constant((0.0, 0.0, self.z_init), out.device, out.dtype)
 
 
 class ObjPoseHead(nn.Module):
@@ -103,13 +113,14 @@ class ObjPoseHead(nn.Module):
 
     def forward(self, feats: torch.Tensor):
         trans = self.objtrans_mlp(feats)
-        trans = trans + trans.new_tensor([0.0, 0.0, self.z_init])
+        trans = trans + _constant((0.0, 0.0, self.z_init), trans.device, trans.dtype)
         if self.objrot_mlp is None:
             eye = torch.eye(3, dtype=feats.dtype, device=feats.device)
             return eye.expand(feats.shape[:-1] + (3, 3)), trans
         raw = self.objrot_mlp(feats)
         if self.rot_param == "6d":
-            rot = rot6d_to_matrix(raw + raw.new_tensor([1.0, 0, 0, 0, 1.0, 0]))
+            rot = rot6d_to_matrix(raw + _constant((1.0, 0.0, 0.0, 0.0, 1.0, 0.0), raw.device,
+                                                  raw.dtype))
         else:
             rot = rodrigues(raw)
         return rot, trans

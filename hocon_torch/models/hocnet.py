@@ -6,12 +6,14 @@ units (camera-space meters, root-centred millimetres, pixels).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
 
 from hocon_torch.device import resolve_device
 from hocon_torch.geometry.mano import ManoModel
-from hocon_torch.geometry.mano_graph import ManoGraphs, graphed_mano_forward
+from hocon_torch.geometry.mano_graph import ManoGraphs, graphed_mano_forward, graphed_model
 from hocon_torch.geometry.project import persp_project, transform_points
 from hocon_torch.models.backbone import (
     BatchNorm2d,
@@ -41,10 +43,15 @@ class HOCNet(nn.Module):
     then moved to ``device`` (CUDA if None). Load Flax weights with
     ``hocon_torch.utils.flax_weights.load_flax_variables``.
 
-    On the card, MANO's forward and backward replay CUDA graphs held in
-    ``mano_graphs``, one pair per input signature
-    (``hocon_torch.geometry.mano_graph``); the cache is not in the state
-    dict, and a deep copy starts an empty one.
+    On the card, the trunk and the heads' regressions (images to
+    ``pose_pca``, ``betas``, ``root_rot``, ``trans`` and, where the object
+    head runs, ``obj_rot`` and ``obj_trans``) replay one CUDA graph forward
+    and one backward held in ``model_graphs``, and MANO's forward and
+    backward two held in ``mano_graphs``, one pair per signature
+    (``hocon_torch.geometry.mano_graph``); the caches are not in the state
+    dict, and a deep copy starts empty ones. Trainable batch norm over a
+    data-parallel mesh reduces its statistics in a collective, which a
+    capture cannot hold: that trunk runs eagerly.
     """
 
     def __init__(
@@ -77,6 +84,7 @@ class HOCNet(nn.Module):
         )
         self.reset_parameters(torch.Generator().manual_seed(seed))
         self.to(dev)
+        self.model_graphs = ManoGraphs()
         self.mano_graphs = ManoGraphs()
 
     @torch.no_grad()
@@ -97,13 +105,17 @@ class HOCNet(nn.Module):
         mano: ManoModel,
         obj_verts_can: torch.Tensor | None = None,  # (B, Vo, 3) meters
     ) -> dict:
-        # Spans: the trunk; MANO's forward; the heads and everything else
-        # around it (two ranges of one name).
+        # Spans: the trunk with the heads' regressions (one graph replay on
+        # the card); MANO's forward; the rest, in camera space.
+        with_obj = self.obj_head is not None and obj_verts_can is not None
+        regress = functools.partial(self._regress, with_obj=with_obj)
         with span("model.trunk"):
-            feats = self.trunk(images)
-        with span("model.heads"):
-            pose_pca, betas, root_rot = self.mano_head(feats)
-            trans = self.absolute_head(feats)
+            if self._collective_norms():
+                heads = regress(images)
+            else:
+                heads = graphed_model(self.model_graphs, self, regress, (images,),
+                                      self._graph_key(with_obj))
+        pose_pca, betas, root_rot, trans = heads[:4]
         with span("model.mano"):
             verts_m, joints_m = graphed_mano_forward(
                 self.mano_graphs, mano, pose_pca, betas, root_rot
@@ -125,8 +137,8 @@ class HOCNet(nn.Module):
                 "verts2d": persp_project(verts_cam, camintr),
                 "center_cam": center,
             }
-            if self.obj_head is not None and obj_verts_can is not None:
-                obj_rot, obj_trans = self.obj_head(feats)
+            if with_obj:
+                obj_rot, obj_trans = heads[4:]
                 obj_cam = transform_points(obj_verts_can, obj_rot, obj_trans)
                 out.update(
                     obj_rot=obj_rot,
@@ -136,3 +148,25 @@ class HOCNet(nn.Module):
                     obj_verts2d=persp_project(obj_cam, camintr),
                 )
         return out
+
+    def _regress(self, images: torch.Tensor, with_obj: bool) -> tuple:
+        """Images to the heads' regressions: (pose_pca, betas, root_rot,
+        trans) and, ``with_obj``, (obj_rot, obj_trans)."""
+        feats = self.trunk(images)
+        out = (*self.mano_head(feats), self.absolute_head(feats))
+        if with_obj:
+            out += self.obj_head(feats)
+        return out
+
+    def _graph_key(self, with_obj: bool) -> tuple:
+        """What the regressions' graphs depend on besides ``graph_signature``:
+        the training mode, the object head, and cuDNN's and the matmuls'
+        precision switches."""
+        return (self.training, with_obj, torch.backends.cudnn.deterministic,
+                torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+
+    def _collective_norms(self) -> bool:
+        """Whether the trunk's batch norm reduces its statistics over a
+        data-parallel mesh (trainable, under ``sharding.replicate``)."""
+        return not self.freeze_batchnorm and any(
+            isinstance(m, BatchNorm2d) and m.mesh is not None for m in self.trunk.modules())

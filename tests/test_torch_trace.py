@@ -117,7 +117,8 @@ def test_step_emits_its_spans_nested_in_the_step(scene, kind):
 def test_model_and_render_spans_do_not_nest(scene):
     """``model.*`` and ``render.*`` ranges are siblings under the step (no
     range holds another of its layer), so their sums count each moment
-    once; ``model.heads`` is two ranges around ``model.mano``."""
+    once; ``model.trunk`` (the trunk with the heads' regressions), then
+    ``model.mano``, then ``model.heads`` (the tail in camera space)."""
     mano, batch = scene
     state, step = _step("warp", mano)
     _, events = _profiled(lambda: step(state, batch))
@@ -127,9 +128,12 @@ def test_model_and_render_spans_do_not_nest(scene):
             if x is not y and x.name.split(".")[0] == y.name.split(".")[0]:
                 assert (x.time_range.end <= y.time_range.start
                         or y.time_range.end <= x.time_range.start), (x.name, y.name)
-    heads = sorted(e.time_range.start for e in spans if e.name == "model.heads")
-    (mano_span,) = [e for e in spans if e.name == "model.mano"]
-    assert len(heads) == 2 and heads[0] < mano_span.time_range.start < heads[1]
+    (trunk, mano_span, heads) = (
+        [e for e in spans if e.name == name] for name in ("model.trunk", "model.mano",
+                                                          "model.heads"))
+    assert len(trunk) == len(mano_span) == len(heads) == 1
+    assert (trunk[0].time_range.end <= mano_span[0].time_range.start
+            and mano_span[0].time_range.end <= heads[0].time_range.start)
 
 
 def test_warp_step_bits_with_and_without_a_profiler(scene):
