@@ -139,7 +139,7 @@ Phases, each reported on its own line:
    tool's ``KERNELS_OF_STAGE`` names and no other; the full warp step's
    K1-K4 launches per call must be the train phase's per step.
 17. mano_graph — HOCNet's MANO call, replayed from CUDA graphs
-   (``hocon_torch.geometry.mano_graph``), against ``mano_forward`` called
+   (``hocon_torch.models.graphs.graphed_mano``), against ``mano_forward`` called
    directly on the same model and batches (the data phase's): the warp
    step's forward on 32 images and the supervised step's on 16, with grad
    and under ``torch.no_grad``, and the mirrored hand at 16, two calls of
@@ -159,11 +159,11 @@ Phases, each reported on its own line:
    flash or memory-efficient attention kernels forward and backward and
    never run the math backend; float64 inputs, which neither pinned
    backend takes, must raise; finite outputs and gradients; then MANO from
-   rotation matrices replayed from CUDA graphs (``graphed_mano_rotmat``) on
+   rotation matrices replayed from CUDA graphs (``graphed_mano``) on
    seeded rotations against ``mano_forward_rotmat``, bit for bit
    forward and backward, one capture and one replay a call.
 19. model_graph — HOCNet's trunk and heads replayed from CUDA graphs
-   (``hocon_torch.geometry.mano_graph.graphed_model``) against eager mode
+   (``hocon_torch.models.graphs.graphed_model``) against eager mode
    (trunk, heads and MANO run eagerly) from the same weights, cuDNN
    deterministic: ``MODEL_STEPS`` supervised steps, warp steps and
    supervised steps with trainable batch norm, where the terms, HOCNet's
@@ -2368,8 +2368,8 @@ def phase_mano_graph(torch, device, batch, smi: str) -> None:
     called directly, bit for bit (module note, phase 17)."""
     import contextlib
 
-    from hocon_torch.geometry import mano_graph as MG
     from hocon_torch.geometry.mano import mano_forward, mirror_mano_model, synthetic_mano_model
+    from hocon_torch.models import graphs as MG
     from hocon_torch.models import hocnet as hocnet_mod
     from hocon_torch.models.hocnet import HOCNet
     from hocon_torch.models.losses import total_supervised_loss
@@ -2378,14 +2378,13 @@ def phase_mano_graph(torch, device, batch, smi: str) -> None:
 
     @contextlib.contextmanager
     def eager():
-        graphed = hocnet_mod.graphed_mano_forward
-        hocnet_mod.graphed_mano_forward = (
-            lambda graphs, mano, pose, betas, rot: mano_forward(mano, pose, betas, rot,
-                                                                scale_mm=False))
+        graphed = hocnet_mod.graphed_mano
+        hocnet_mod.graphed_mano = lambda graphs, body, mano, *inputs: body(mano, *inputs,
+                                                                            scale_mm=False)
         try:
             yield
         finally:
-            hocnet_mod.graphed_mano_forward = graphed
+            hocnet_mod.graphed_mano = graphed
 
     right = synthetic_mano_model(0, device=device)
     left = mirror_mano_model(right)
@@ -2430,13 +2429,13 @@ def phase_mano_graph(torch, device, batch, smi: str) -> None:
         inputs = (head[:, :15], betas, head[:, 15:])
         gv = torch.randn(n, 778, 3, generator=gen, device=device)
         gj = torch.randn(n, 21, 3, generator=gen, device=device)
-        graphs = MG.ManoGraphs()
+        graphs = MG.Graphs()
 
         def eager_call():
             return mano_forward(right, *inputs, scale_mm=False)
 
         def graphed_call():
-            return MG.graphed_mano_forward(graphs, right, *inputs)
+            return MG.graphed_mano(graphs, mano_forward, right, *inputs)
 
         results, ms = {}, {}
         for name, call in (("eager", eager_call), ("graphed", graphed_call)):
@@ -2491,12 +2490,12 @@ def phase_mano_graph(torch, device, batch, smi: str) -> None:
         if differing(torch, again, want[0][0]):
             fail(f"mano_graph: eager mode does not repeat its own bits: "
                  f"{differing(torch, again, want[0][0])[:8]}")
-        caps = MG.graphed_mano_forward.captures
+        caps = MG.graphed_mano.captures
         for (what, fns, grad), wants in zip(cases, want):
-            c0, r0 = MG.graphed_mano_forward.captures, MG.graphed_mano_forward.replays
+            c0, r0 = MG.graphed_mano.captures, MG.graphed_mano.replays
             got = [run(fn, grad) for fn in fns]
-            captured = MG.graphed_mano_forward.captures - c0
-            replayed = MG.graphed_mano_forward.replays - r0
+            captured = MG.graphed_mano.captures - c0
+            replayed = MG.graphed_mano.replays - r0
             bad = [differing(torch, g, w) for g, w in zip(got, wants)]
             # The first call's outputs, returned before the later replays.
             kept = differing(torch, {k: v for k, v in got[0].items() if k.startswith("out.")},
@@ -2519,10 +2518,10 @@ def phase_mano_graph(torch, device, batch, smi: str) -> None:
                  f"{differing(torch, again, want[1][0])[:8]} differ")
     finally:
         torch.backends.cudnn.deterministic = deterministic
-    signatures = len(model.mano_graphs)
-    if signatures != len(cases) or MG.graphed_mano_forward.captures - caps != len(cases):
-        fail(f"mano_graph: {signatures} graphs cached, "
-             f"{MG.graphed_mano_forward.captures - caps} captured, want {len(cases)}")
+    signatures = sum(g.counter is MG.graphed_mano for g in model.graphs.values())
+    if signatures != len(cases) or MG.graphed_mano.captures - caps != len(cases):
+        fail(f"mano_graph: {signatures} MANO graphs cached, "
+             f"{MG.graphed_mano.captures - caps} captured, want {len(cases)}")
 
     # A backward after a later call of its signature must refuse.
     outs.clear()
@@ -2551,8 +2550,8 @@ def phase_model_graph(torch, device, batch, smi: str) -> None:
 
     from torch.profiler import ProfilerActivity, profile
 
-    from hocon_torch.geometry import mano_graph as MG
-    from hocon_torch.geometry.mano import mano_forward, synthetic_mano_model
+    from hocon_torch.geometry.mano import synthetic_mano_model
+    from hocon_torch.models import graphs as MG
     from hocon_torch.models import hocnet as hocnet_mod
     from hocon_torch.models.hocnet import HOCNet
     from hocon_torch.models.losses import total_supervised_loss
@@ -2563,19 +2562,22 @@ def phase_model_graph(torch, device, batch, smi: str) -> None:
     @contextlib.contextmanager
     def eager():
         """The trunk, the heads and MANO as eager mode runs them."""
-        graphed = hocnet_mod.graphed_model, hocnet_mod.graphed_mano_forward
+        graphed = hocnet_mod.graphed_model, hocnet_mod.graphed_mano
         hocnet_mod.graphed_model = lambda graphs, module, fn, inputs, key=(): fn(*inputs)
-        hocnet_mod.graphed_mano_forward = (
-            lambda graphs, mano, pose, betas, rot: mano_forward(mano, pose, betas, rot,
-                                                                scale_mm=False))
+        hocnet_mod.graphed_mano = lambda graphs, body, mano, *inputs: body(mano, *inputs,
+                                                                            scale_mm=False)
         try:
             yield
         finally:
-            hocnet_mod.graphed_model, hocnet_mod.graphed_mano_forward = graphed
+            hocnet_mod.graphed_model, hocnet_mod.graphed_mano = graphed
 
     def counts():
         return (MG.graphed_model.captures, MG.graphed_model.replays,
-                MG.graphed_mano_forward.captures, MG.graphed_mano_forward.replays)
+                MG.graphed_mano.captures, MG.graphed_mano.replays)
+
+    def regressions_cached(model) -> int:
+        """The regressions' graphs in ``model``'s cache."""
+        return sum(g.counter is MG.graphed_model for g in model.graphs.values())
 
     mano = synthetic_mano_model(0, device=device)
     batch = batch_to_device(batch, torch.device(device))
@@ -2637,7 +2639,7 @@ def phase_model_graph(torch, device, batch, smi: str) -> None:
         for n, (what, kind, freeze) in enumerate(cases):
             base = new_model(freeze)
             twin = copy.deepcopy(base)
-            if len(twin.model_graphs) or len(twin.mano_graphs):
+            if len(twin.graphs):
                 fail("model_graph: a deep copy kept graphs")
             with eager():
                 want = train(kind, twin)
@@ -2659,9 +2661,9 @@ def phase_model_graph(torch, device, batch, smi: str) -> None:
                 f"parameters and buffers after each step: {sum(map(len, bad))} differ")
             if any(bad):
                 fail(f"model_graph: {what}: differing bits {bad}")
-            if captured != 1 or replayed != MODEL_STEPS or len(base.model_graphs) != 1:
+            if captured != 1 or replayed != MODEL_STEPS or regressions_cached(base) != 1:
                 fail(f"model_graph: {what}: {captured} captures and {replayed} replays over "
-                     f"{MODEL_STEPS} calls ({len(base.model_graphs)} cached), want 1 and "
+                     f"{MODEL_STEPS} calls ({regressions_cached(base)} cached), want 1 and "
                      f"{MODEL_STEPS}")
 
         # Two backwards without zeroing, from a held value, into the last
@@ -2808,9 +2810,9 @@ def phase_hamer(torch, device, smi: str) -> None:
     """HaMeR's attention and MANO entry on the card (module note, phase 18)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from hocon_torch.geometry import mano_graph as MG
     from hocon_torch.geometry.mano import mano_forward_rotmat, synthetic_mano_model
     from hocon_torch.geometry.rot import rot6d_to_matrix
+    from hocon_torch.models import graphs as MG
     from hocon_torch.models.attention import attention
     from hocon_torch.models.hamer import HaMeR
 
@@ -2863,11 +2865,12 @@ def phase_hamer(torch, device, smi: str) -> None:
     six.requires_grad_()
     betas = torch.randn(2 * PAIRS, 10, generator=gen, device=device).requires_grad_()
     gv = torch.randn(2 * PAIRS, 778, 3, generator=gen, device=device)
-    graphs = MG.ManoGraphs()
+    graphs = MG.Graphs()
     results = {}
     for name, fn in (("eager", lambda r: mano_forward_rotmat(mano, r, betas, scale_mm=False)),
-                     ("graphed", lambda r: MG.graphed_mano_rotmat(graphs, mano, r, betas))):
-        c0, r0 = MG.graphed_mano_forward.captures, MG.graphed_mano_forward.replays
+                     ("graphed", lambda r: MG.graphed_mano(graphs, mano_forward_rotmat, mano, r,
+                                                           betas))):
+        c0, r0 = MG.graphed_mano.captures, MG.graphed_mano.replays
         six.grad = betas.grad = None
         rots = rot6d_to_matrix(six)
         verts, joints = fn(rots)
@@ -2875,8 +2878,8 @@ def phase_hamer(torch, device, smi: str) -> None:
         torch.cuda.synchronize()
         results[name] = {"verts": verts, "joints": joints, "six.grad": six.grad.clone(),
                          "betas.grad": betas.grad.clone()}
-        results[name + " counts"] = (MG.graphed_mano_forward.captures - c0,
-                                     MG.graphed_mano_forward.replays - r0)
+        results[name + " counts"] = (MG.graphed_mano.captures - c0,
+                                     MG.graphed_mano.replays - r0)
     if differing(torch, results["graphed"], results["eager"]):
         fail(f"hamer: graphed rotation-matrix MANO differs: "
              f"{differing(torch, results['graphed'], results['eager'])}")

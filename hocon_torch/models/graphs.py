@@ -1,20 +1,19 @@
-"""MANO's forward and backward replayed from CUDA graphs, for HOCNet and
-HaMeR, and the same mechanism for a module's call with its parameters
-(HOCNet's trunk and heads).
+"""Functions replayed from CUDA graphs, forward and backward: MANO's
+forward (HOCNet's and HaMeR's) and HOCNet's trunk and heads.
 
 ``mano_forward`` launches about 130 small kernels forward and as many
 backward (the kinematic chain goes one joint at a time) for 0.6 ms of work
-on an H100, so the card waits on the host's launches (PERF.md section 5).
-``graphed_mano_forward`` captures the function's own kernels once per
-signature (``mano_signature``) into one CUDA graph for the forward and, when
-the inputs need gradients, one for the backward, and replays them after:
-each call is an input copy, one replay and an output copy, and its backward
-likewise. ``graphed_mano_rotmat`` does the same for ``mano_forward_rotmat``
-(MANO from the 16 joints' rotation matrices, HaMeR's entry), under
-signatures of its own in the same cache. ``graphed_model`` does it for a
-function of a module's parameters: the signature adds each parameter's
-address, shape, dtype and ``requires_grad`` (``graph_signature``), and the
-backward graph gives the parameters' gradients too.
+on an H100, and HOCNet's trunk and heads about 160, so the card waits on
+the host's launches (PERF.md section 5). ``graphed_mano`` and
+``graphed_model`` capture the function's own kernels once per signature
+(``graph_signature``) into one CUDA graph for the forward and, when the
+inputs or the parameters need gradients, one for the backward, and replay
+them after: each call is an input copy, one replay and an output copy, and
+its backward likewise. ``graphed_mano`` runs a MANO body (``mano_forward``
+or ``mano_forward_rotmat``); ``graphed_model`` runs a function of a
+module's parameters, whose gradients the backward graph gives too. An
+owner (a HOCNet, a HaMeR) keeps its graphs in one ``Graphs`` cache, each
+keyed by the name of the function graphed and its signature.
 
 A graph replays the kernels that eager mode launches, in the same order
 (the backward is captured from autograd's own backward of the same
@@ -55,10 +54,9 @@ replay of that graph saved for its backward, so the backward of a call
 must run before the next call of the same signature: an older call's
 backward raises.
 
-``graphed_mano_forward.captures`` counts the MANO signatures captured and
-``graphed_mano_forward.replays`` the calls that replayed a MANO forward
-graph, of both entries; ``graphed_model.captures`` and
-``graphed_model.replays`` count ``graphed_model``'s.
+``graphed_mano.captures`` / ``.replays`` count the MANO signatures captured
+and the calls that replayed one, of both bodies; ``graphed_model.captures``
+/ ``.replays`` count ``graphed_model``'s.
 """
 
 from __future__ import annotations
@@ -69,7 +67,6 @@ import functools
 import torch
 from torch.autograd.function import once_differentiable
 
-from hocon_torch.geometry import mano as mano_mod
 from hocon_torch.geometry.mano import ManoModel
 
 WARMUP_CALLS = 3  # eager calls on the capture's stream before the capture
@@ -83,9 +80,9 @@ def _capture_stream(device: torch.device) -> torch.cuda.Stream:
     return torch.cuda.Stream(device)
 
 
-class ManoGraphs(dict):
-    """One owner's graphs (a HOCNet's or a HaMeR's), keyed by the entry's
-    name and its signature.
+class Graphs(dict):
+    """One owner's graphs (a HOCNet's or a HaMeR's), keyed by the name of
+    the function graphed and its signature.
 
     Each entry holds what it captured (the ``ManoModel``, the module), whose
     tensors the graphs read by address. Not part of any ``state_dict``; a
@@ -93,31 +90,37 @@ class ManoGraphs(dict):
     copied).
     """
 
-    def __deepcopy__(self, memo) -> "ManoGraphs":
-        return ManoGraphs()
+    def __deepcopy__(self, memo) -> "Graphs":
+        return Graphs()
 
 
 def graph_signature(owner, inputs: tuple, params: tuple = ()) -> tuple:
-    """What a capture fixes: the device, the grad and autocast modes, the
-    owner (by identity: the graphs read its tensors), each input's shape,
-    strides, offset, dtype and whether it needs a gradient and, with
-    ``params``, each parameter's address, shape, dtype and whether it needs
-    a gradient (a ``.to()`` or a replaced parameter captures anew)."""
+    """What a capture fixes: the device, the grad and autocast modes,
+    cuDNN's and the matmuls' precision switches, the owner (by identity:
+    the graphs read its tensors), each input's shape, strides, offset,
+    dtype and whether it needs a gradient and, where the owner is a module,
+    its training mode and each of its parameters ``params``' address,
+    shape, dtype and whether it needs a gradient (a ``.to()`` or a replaced
+    parameter captures anew)."""
     dev = inputs[0].device
     grad = torch.is_grad_enabled() and any(x.requires_grad for x in (*inputs, *params))
     sig = (dev, grad, torch.is_inference_mode_enabled(),
-           torch.is_autocast_enabled(dev.type), torch.get_autocast_dtype(dev.type), id(owner),
+           torch.is_autocast_enabled(dev.type), torch.get_autocast_dtype(dev.type),
+           torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32, id(owner),
            tuple((x.shape, x.stride(), x.storage_offset(), x.dtype, grad and x.requires_grad)
                  for x in inputs))
-    if params:
-        sig += (tuple((p.data_ptr(), p.shape, p.dtype, grad and p.requires_grad)
-                      for p in params),)
+    if isinstance(owner, torch.nn.Module):
+        sig += (owner.training, tuple((p.data_ptr(), p.shape, p.dtype, grad and p.requires_grad)
+                                      for p in params))
     return sig
 
 
-def mano_signature(model: ManoModel, *inputs: torch.Tensor) -> tuple:
-    """``graph_signature`` of a MANO call: the MANO model and its inputs."""
-    return graph_signature(model, inputs)
+def _name(fn) -> str:
+    """The qualified name of the function graphed (of a partial's function)."""
+    while isinstance(fn, functools.partial):
+        fn = fn.func
+    return fn.__qualname__
 
 
 def _extent(x: torch.Tensor) -> int:
@@ -292,7 +295,7 @@ class _Replay(torch.autograd.Function):
         return (None,) + ctx.graph.backward(ctx.generation, grads)
 
 
-def _graphed(graphs: ManoGraphs, key: tuple, grad: bool, fn, inputs: tuple, counter,
+def _graphed(graphs: Graphs, key: tuple, grad: bool, fn, inputs: tuple, counter,
              module=None, params: tuple = ()):
     """``fn(*inputs)`` replayed from ``graphs[key]``, captured on the key's
     first call (``grad``: whether the signature takes gradients; ``params``:
@@ -306,56 +309,36 @@ def _graphed(graphs: ManoGraphs, key: tuple, grad: bool, fn, inputs: tuple, coun
     return _Replay.apply(graph, *inputs, *params)
 
 
-def _graphed_mano(graphs: ManoGraphs, body, model: ManoModel, inputs: tuple):
-    """``body(model, *inputs, scale_mm=False)``: replayed from ``graphs`` on
-    CUDA inputs (captured on the signature's first call), run as it is on
-    CPU ones."""
+def graphed_mano(graphs: Graphs, body, mano: ManoModel,
+                 *inputs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``body(mano, *inputs, scale_mm=False)``, where ``body`` is
+    ``mano_forward`` (pose PCA, betas, root rotation) or
+    ``mano_forward_rotmat`` (rotation matrices, betas): replayed from
+    ``graphs`` on CUDA inputs (captured on the signature's first call), run
+    as it is on CPU ones."""
+    fn = functools.partial(body, mano, scale_mm=False)
     if not inputs[0].is_cuda:
-        return body(model, *inputs, scale_mm=False)
-    sig = mano_signature(model, *inputs)
-    return _graphed(graphs, (body.__name__,) + sig, sig[1],
-                    functools.partial(body, model, scale_mm=False), inputs, graphed_mano_forward)
+        return fn(*inputs)
+    sig = graph_signature(mano, inputs)
+    return _graphed(graphs, (_name(fn),) + sig, sig[1], fn, inputs, graphed_mano)
 
 
-def graphed_mano_forward(
-    graphs: ManoGraphs,
-    model: ManoModel,
-    pose_pca: torch.Tensor,
-    betas: torch.Tensor,
-    global_rot: torch.Tensor,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """``mano_forward(model, pose_pca, betas, global_rot, scale_mm=False)``:
-    replayed from ``graphs`` on a CUDA input (captured on the signature's
-    first call), run as it is on a CPU one."""
-    return _graphed_mano(graphs, mano_mod.mano_forward, model, (pose_pca, betas, global_rot))
-
-
-def graphed_mano_rotmat(
-    graphs: ManoGraphs,
-    model: ManoModel,
-    rots: torch.Tensor,
-    betas: torch.Tensor,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """``mano_forward_rotmat(model, rots, betas, scale_mm=False)``, as
-    ``graphed_mano_forward`` runs ``mano_forward``."""
-    return _graphed_mano(graphs, mano_mod.mano_forward_rotmat, model, (rots, betas))
-
-
-def graphed_model(graphs: ManoGraphs, module: torch.nn.Module, fn, inputs: tuple,
+def graphed_model(graphs: Graphs, module: torch.nn.Module, fn, inputs: tuple,
                   key: tuple = ()) -> tuple:
     """``fn(*inputs)``, a function of ``module``'s parameters and buffers
     that returns a tuple of tensors: replayed from ``graphs`` on CUDA inputs
     (captured on the signature's first call), run as it is on CPU ones.
-    ``key`` adds what else the call depends on (the module's modes); the
-    signature is ``graph_signature`` over the module's parameters."""
+    ``key`` adds what else the call depends on that no tensor and no switch
+    shows (HOCNet's object head)."""
     if not inputs[0].is_cuda:
         return fn(*inputs)
     params = tuple(module.parameters())
     sig = graph_signature(module, inputs, params)
-    return _graphed(graphs, key + sig, sig[1], fn, inputs, graphed_model, module, params)
+    return _graphed(graphs, (_name(fn), *key) + sig, sig[1], fn, inputs, graphed_model, module,
+                    params)
 
 
-graphed_mano_forward.captures = 0
-graphed_mano_forward.replays = 0
+graphed_mano.captures = 0
+graphed_mano.replays = 0
 graphed_model.captures = 0
 graphed_model.replays = 0

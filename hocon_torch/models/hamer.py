@@ -38,11 +38,11 @@ import torch
 from torch import nn
 
 from hocon_torch.device import resolve_device
-from hocon_torch.geometry.mano import ManoModel
-from hocon_torch.geometry.mano_graph import ManoGraphs, graphed_mano_rotmat
-from hocon_torch.geometry.project import persp_project
+from hocon_torch.geometry.mano import ManoModel, mano_forward_rotmat
 from hocon_torch.geometry.rot import rot6d_to_matrix
 from hocon_torch.models.attention import attention
+from hocon_torch.models.graphs import Graphs, graphed_mano
+from hocon_torch.models.heads import camera_space
 from hocon_torch.models.vit import ViT
 from hocon_torch.utils.trace import span
 
@@ -198,7 +198,7 @@ class HaMeR(nn.Module):
     ``device`` (CUDA if None), where the model is built, as HaMeR initialises
     them (``ViT.reset_parameters``,
     ``MANOTransformerDecoderHead.reset_parameters``). MANO's CUDA graphs are
-    held in ``mano_graphs``, as HOCNet holds them.
+    held in ``graphs``, as HOCNet holds its own.
     """
 
     def __init__(
@@ -235,7 +235,7 @@ class HaMeR(nn.Module):
         generator = torch.Generator(device=dev).manual_seed(seed)
         self.backbone.reset_parameters(generator)
         self.mano_head.reset_parameters(generator)
-        self.mano_graphs = ManoGraphs()
+        self.graphs = Graphs()
 
     def forward(
         self,
@@ -258,22 +258,9 @@ class HaMeR(nn.Module):
             trans = torch.stack([cam[:, 1], cam[:, 2],
                                  2.0 * focal / (size * cam[:, 0] + 1e-9)], dim=-1)
         with span("model.mano"):
-            verts_m, joints_m = graphed_mano_rotmat(self.mano_graphs, mano, rots, betas)
+            verts_m, joints_m = graphed_mano(self.graphs, mano_forward_rotmat, mano, rots, betas)
         with span("model.heads"):
-            verts_cam = verts_m + trans[:, None]
-            joints_cam = joints_m + trans[:, None]
-            center = joints_cam[:, self.center_idx : self.center_idx + 1]
             eye = torch.eye(3, dtype=rots.dtype, device=rots.device)
-            return {
-                "pose_pca": (rots[:, 1:] - eye).reshape(b, 9 * (N_JOINTS - 1)),
-                "betas": betas,
-                "root_rot": rots[:, 0],
-                "trans": trans,
-                "verts_cam": verts_cam,
-                "joints_cam": joints_cam,
-                "verts_c_mm": (verts_cam - center) * 1000.0,
-                "joints_c_mm": (joints_cam - center) * 1000.0,
-                "joints2d": persp_project(joints_cam, camintr),
-                "verts2d": persp_project(verts_cam, camintr),
-                "center_cam": center,
-            }
+            return {"pose_pca": (rots[:, 1:] - eye).reshape(b, 9 * (N_JOINTS - 1)),
+                    "betas": betas, "root_rot": rots[:, 0], "trans": trans,
+                    **camera_space(verts_m, joints_m, trans, camintr, self.center_idx)}

@@ -1,8 +1,9 @@
-"""Regression heads.
+"""Regression heads, and the hand in camera space.
 
 Port of ``hocon/models/heads.py``: separate MLPs for pose and shape, and
 for object translation and rotation, as in the Flax tree. Each MLP's layers
 are ``layers.{i}``, the counterpart of Flax's ``Dense_{i}``.
+``camera_space`` is the tail every model's output shares.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from hocon_torch.geometry.project import persp_project
 from hocon_torch.geometry.rot import rodrigues, rot6d_to_matrix
 from hocon_torch.models.backbone import lecun_normal_
 
@@ -124,3 +126,29 @@ class ObjPoseHead(nn.Module):
         else:
             rot = rodrigues(raw)
         return rot, trans
+
+
+def camera_space(
+    verts_m: torch.Tensor,  # (B, V, 3) MANO's vertices, meters
+    joints_m: torch.Tensor,  # (B, 21, 3) MANO's joints, meters
+    trans: torch.Tensor,  # (B, 3) the hand's translation, meters
+    camintr: torch.Tensor,  # (B, 3, 3)
+    center_idx: int,
+) -> dict:
+    """MANO's hand moved by ``trans`` into camera space: ``verts_cam`` and
+    ``joints_cam`` (meters), ``verts_c_mm`` and ``joints_c_mm`` (millimetres
+    from the joint ``center_idx``), ``joints2d`` and ``verts2d`` (pixels) and
+    ``center_cam`` (that joint, (B, 1, 3)): the keys the losses, the warp and
+    the evaluation read of every model."""
+    verts_cam = verts_m + trans[:, None]
+    joints_cam = joints_m + trans[:, None]
+    center = joints_cam[:, center_idx : center_idx + 1]
+    return {
+        "verts_cam": verts_cam,
+        "joints_cam": joints_cam,
+        "verts_c_mm": (verts_cam - center) * 1000.0,
+        "joints_c_mm": (joints_cam - center) * 1000.0,
+        "joints2d": persp_project(joints_cam, camintr),
+        "verts2d": persp_project(verts_cam, camintr),
+        "center_cam": center,
+    }

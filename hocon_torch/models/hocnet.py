@@ -12,8 +12,7 @@ import torch
 from torch import nn
 
 from hocon_torch.device import resolve_device
-from hocon_torch.geometry.mano import ManoModel
-from hocon_torch.geometry.mano_graph import ManoGraphs, graphed_mano_forward, graphed_model
+from hocon_torch.geometry.mano import ManoModel, mano_forward
 from hocon_torch.geometry.project import persp_project, transform_points
 from hocon_torch.models.backbone import (
     BatchNorm2d,
@@ -22,7 +21,8 @@ from hocon_torch.models.backbone import (
     resnet34,
     resnet50,
 )
-from hocon_torch.models.heads import MLP, AbsoluteHead, ManoHead, ObjPoseHead
+from hocon_torch.models.graphs import Graphs, graphed_mano, graphed_model
+from hocon_torch.models.heads import MLP, AbsoluteHead, ManoHead, ObjPoseHead, camera_space
 from hocon_torch.utils.trace import span
 
 _BACKBONES = {"resnet18": resnet18, "resnet34": resnet34, "resnet50": resnet50}
@@ -46,12 +46,12 @@ class HOCNet(nn.Module):
     On the card, the trunk and the heads' regressions (images to
     ``pose_pca``, ``betas``, ``root_rot``, ``trans`` and, where the object
     head runs, ``obj_rot`` and ``obj_trans``) replay one CUDA graph forward
-    and one backward held in ``model_graphs``, and MANO's forward and
-    backward two held in ``mano_graphs``, one pair per signature
-    (``hocon_torch.geometry.mano_graph``); the caches are not in the state
-    dict, and a deep copy starts empty ones. Trainable batch norm over a
-    data-parallel mesh reduces its statistics in a collective, which a
-    capture cannot hold: that trunk runs eagerly.
+    and one backward, and MANO's forward and backward two more, one pair
+    per signature, all held in ``graphs`` (``hocon_torch.models.graphs``);
+    the cache is not in the state dict, and a deep copy starts an empty
+    one. Trainable batch norm over a data-parallel mesh reduces its
+    statistics in a collective, which a capture cannot hold: that trunk
+    runs eagerly.
     """
 
     def __init__(
@@ -84,8 +84,7 @@ class HOCNet(nn.Module):
         )
         self.reset_parameters(torch.Generator().manual_seed(seed))
         self.to(dev)
-        self.model_graphs = ManoGraphs()
-        self.mano_graphs = ManoGraphs()
+        self.graphs = Graphs()
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -113,30 +112,14 @@ class HOCNet(nn.Module):
             if self._collective_norms():
                 heads = regress(images)
             else:
-                heads = graphed_model(self.model_graphs, self, regress, (images,),
-                                      self._graph_key(with_obj))
+                heads = graphed_model(self.graphs, self, regress, (images,), (with_obj,))
         pose_pca, betas, root_rot, trans = heads[:4]
         with span("model.mano"):
-            verts_m, joints_m = graphed_mano_forward(
-                self.mano_graphs, mano, pose_pca, betas, root_rot
-            )
+            verts_m, joints_m = graphed_mano(self.graphs, mano_forward, mano, pose_pca, betas,
+                                             root_rot)
         with span("model.heads"):
-            verts_cam = verts_m + trans[:, None]
-            joints_cam = joints_m + trans[:, None]
-            center = joints_cam[:, self.center_idx : self.center_idx + 1]
-            out = {
-                "pose_pca": pose_pca,
-                "betas": betas,
-                "root_rot": root_rot,
-                "trans": trans,
-                "verts_cam": verts_cam,
-                "joints_cam": joints_cam,
-                "verts_c_mm": (verts_cam - center) * 1000.0,
-                "joints_c_mm": (joints_cam - center) * 1000.0,
-                "joints2d": persp_project(joints_cam, camintr),
-                "verts2d": persp_project(verts_cam, camintr),
-                "center_cam": center,
-            }
+            out = {"pose_pca": pose_pca, "betas": betas, "root_rot": root_rot, "trans": trans,
+                   **camera_space(verts_m, joints_m, trans, camintr, self.center_idx)}
             if with_obj:
                 obj_rot, obj_trans = heads[4:]
                 obj_cam = transform_points(obj_verts_can, obj_rot, obj_trans)
@@ -144,7 +127,7 @@ class HOCNet(nn.Module):
                     obj_rot=obj_rot,
                     obj_trans=obj_trans,
                     obj_verts_cam=obj_cam,
-                    obj_verts_c_mm=(obj_cam - center) * 1000.0,
+                    obj_verts_c_mm=(obj_cam - out["center_cam"]) * 1000.0,
                     obj_verts2d=persp_project(obj_cam, camintr),
                 )
         return out
@@ -157,13 +140,6 @@ class HOCNet(nn.Module):
         if with_obj:
             out += self.obj_head(feats)
         return out
-
-    def _graph_key(self, with_obj: bool) -> tuple:
-        """What the regressions' graphs depend on besides ``graph_signature``:
-        the training mode, the object head, and cuDNN's and the matmuls'
-        precision switches."""
-        return (self.training, with_obj, torch.backends.cudnn.deterministic,
-                torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
 
     def _collective_norms(self) -> bool:
         """Whether the trunk's batch norm reduces its statistics over a

@@ -41,7 +41,7 @@ from hocon_torch.geometry.mano import ManoModel
 from hocon_torch.geometry.project import persp_project, transform_points
 from hocon_torch.models.losses import total_supervised_loss
 from hocon_torch.render.raster import soft_rasterize
-from hocon_torch.render.warp import WarpOutput, bilinear_sample, photometric_loss
+from hocon_torch.render.warp import bilinear_sample, photometric_loss
 from hocon_torch.train.sharding import Mesh, batch_mean, reduce_terms
 from hocon_torch.train.state import OptimizerSpec, TrainState, apply_gradients
 from hocon_torch.utils.trace import span
@@ -214,8 +214,7 @@ def warp_loss(
         warped = bilinear_sample(tile(_unnormalize(ref["image"])), coords)
     with span("render.photo"):
         photo, photo_terms = photometric_loss(warped, tgt_img, mask, mesh=mesh)
-        warp_out = WarpOutput(warped=warped, mask=mask, raster=raster)
-        mask_area = batch_mean(torch.sum(warp_out.mask, dim=(1, 2)), mesh)
+        mask_area = batch_mean(torch.sum(mask, dim=(1, 2)), mesh)
 
     total = sup_ref + sup_tgt + lambda_consist * photo
     terms = {f"ref_{k}": v for k, v in terms_ref.items()}

@@ -1,26 +1,23 @@
-"""MANO's CUDA graphs in HOCNet (``hocon_torch.geometry.mano_graph``), on
-the CPU: what the graphs need of ``mano_forward`` and what the CPU path
-keeps.
+"""MANO's CUDA graphs in HOCNet and HaMeR (``hocon_torch.models.graphs``,
+``graphed_mano``), on the CPU: what the graphs need of ``mano_forward`` and
+what the CPU path keeps.
 
 The fingertip and reorder gathers with device-resident indices, and
 ``with_zeros_4x4``'s bottom row made on the device, give the list index's
-and the host tensor's bits. HOCNet on the CPU runs ``mano_forward`` itself:
-no capture, the same outputs and input gradients. The signature separates
-what a capture fixes, the input buffers keep the caller's layout, and the
-cache stays out of the state dict and out of deep copies. The graphs
+and the host tensor's bits. HOCNet on the CPU runs ``mano_forward`` itself,
+and ``graphed_mano`` runs ``mano_forward_rotmat`` itself: no capture, the
+same outputs and input gradients. The signature separates what a capture
+fixes, and the input buffers keep the caller's layout. The graphs
 themselves need the card: ``chip_smoke.py``'s ``mano_graph`` phase holds
 them to ``mano_forward`` bit for bit.
 """
-
-import copy
-import threading
 
 import pytest
 import torch
 
 from hocon_torch.geometry import mano as TM
-from hocon_torch.geometry import mano_graph as MG
 from hocon_torch.geometry import rot as TR
+from hocon_torch.models import graphs as MG
 from hocon_torch.models.hocnet import HOCNet
 
 torch.set_num_threads(1)
@@ -88,7 +85,7 @@ def test_with_zeros_4x4_bottom_row_is_the_host_tensors():
 def test_hocnet_on_the_cpu_runs_mano_forward(right):
     """No capture; HOCNet's hand and the gradients at MANO's inputs are
     ``mano_forward``'s bit for bit on the same strided inputs."""
-    captures, replays = MG.graphed_mano_forward.captures, MG.graphed_mano_forward.replays
+    captures, replays = MG.graphed_mano.captures, MG.graphed_mano.replays
     model = HOCNet(with_object=False, seed=0, device="cpu")
     gen = torch.Generator().manual_seed(3)
     images = torch.randn(2, 32, 32, 3, generator=gen)
@@ -97,9 +94,9 @@ def test_hocnet_on_the_cpu_runs_mano_forward(right):
     ins = (out["pose_pca"], out["betas"], out["root_rot"])
     loss = out["verts_cam"].square().sum() + out["joints_cam"].sum()
     got = torch.autograd.grad(loss, ins)
-    assert MG.graphed_mano_forward.captures == captures == 0
-    assert MG.graphed_mano_forward.replays == replays == 0
-    assert len(model.mano_graphs) == 0
+    assert MG.graphed_mano.captures == captures == 0
+    assert MG.graphed_mano.replays == replays == 0
+    assert len(model.graphs) == 0
 
     head = torch.cat([ins[0], ins[2]], dim=-1).detach().requires_grad_()
     betas = ins[1].detach().requires_grad_()
@@ -114,12 +111,21 @@ def test_hocnet_on_the_cpu_runs_mano_forward(right):
     assert _same_bits(got[1], betas.grad)
 
 
-@pytest.mark.parametrize("change", ["batch", "dtype", "grad", "model", "layout", "none"])
-def test_signature_separates_what_a_capture_fixes(right, left, change):
+@pytest.mark.parametrize("change", ["batch", "dtype", "grad", "model", "layout", "deterministic",
+                                    "cudnn_tf32", "matmul_tf32", "none"])
+def test_signature_separates_what_a_capture_fixes(right, left, change, monkeypatch):
     inputs, _ = _head_inputs(4)
-    base = MG.mano_signature(right, *inputs)
+    base = MG.graph_signature(right, inputs)
     mano = right
-    if change == "batch":
+    if change == "deterministic":
+        monkeypatch.setattr(torch.backends.cudnn, "deterministic",
+                            not torch.backends.cudnn.deterministic)
+    elif change == "cudnn_tf32":
+        monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", not torch.backends.cudnn.allow_tf32)
+    elif change == "matmul_tf32":
+        monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32",
+                            not torch.backends.cuda.matmul.allow_tf32)
+    elif change == "batch":
         inputs, _ = _head_inputs(5)
     elif change == "dtype":
         inputs = tuple(x.double() for x in inputs)
@@ -129,9 +135,9 @@ def test_signature_separates_what_a_capture_fixes(right, left, change):
         inputs = tuple(x.detach().clone().requires_grad_() for x in inputs)
     if change == "grad":
         with torch.no_grad():
-            key = MG.mano_signature(mano, *inputs)
+            key = MG.graph_signature(mano, inputs)
     else:
-        key = MG.mano_signature(mano, *inputs)
+        key = MG.graph_signature(mano, inputs)
     assert (key == base) == (change == "none")
     assert hash(key) is not None
 
@@ -149,33 +155,17 @@ def test_input_buffers_keep_the_callers_layout(view):
     assert _same_bits(m, x)
 
 
-def test_cache_stays_out_of_state_dict_and_copies(right):
-    model = HOCNet(with_object=True, seed=0, device="cpu")
-    names = {n for n, _ in model.named_parameters()} | {n for n, _ in model.named_buffers()}
-    assert set(model.state_dict()) == names
-    assert not any("mano" in n and "head" not in n for n in names)
-    # A captured graph cannot be copied: stand one in.
-    model.mano_graphs["key"] = threading.Lock()
-    twin = copy.deepcopy(model)
-    assert len(twin.mano_graphs) == 0 and len(model.mano_graphs) == 1
-    assert set(twin.state_dict()) == names
-    # On the CPU the wrapper leaves the cache as it is.
-    inputs, _ = _head_inputs(2)
-    graphs = MG.ManoGraphs()
-    verts, joints = MG.graphed_mano_forward(graphs, right, *inputs)
-    assert len(graphs) == 0 and verts.shape == (2, 778, 3) and joints.shape == (2, 21, 3)
-
-
 def test_rotmat_signature_runs_eagerly_on_the_cpu(right):
-    """HaMeR's entry (``graphed_mano_rotmat``, MANO from rotation matrices)
-    on the CPU: ``mano_forward_rotmat`` itself, bit for bit with its input
-    gradients, no capture, the counters at 0 and the cache empty."""
-    captures, replays = MG.graphed_mano_forward.captures, MG.graphed_mano_forward.replays
+    """HaMeR's body (``mano_forward_rotmat``, MANO from rotation matrices)
+    through ``graphed_mano`` on the CPU: the body itself, bit for bit with
+    its input gradients, no capture, the counters at 0 and the cache
+    empty."""
+    captures, replays = MG.graphed_mano.captures, MG.graphed_mano.replays
     gen = torch.Generator().manual_seed(4)
     six = torch.randn(3, 16, 6, generator=gen).requires_grad_()
     betas = torch.randn(3, 10, generator=gen).requires_grad_()
     rots = TR.rot6d_to_matrix(six)  # a transposed view, as HaMeR's
-    graphs = MG.ManoGraphs()
+    graphs = MG.Graphs()
     gv = torch.randn(3, 778, 3, generator=gen)
 
     def run(fn):
@@ -184,9 +174,9 @@ def test_rotmat_signature_runs_eagerly_on_the_cpu(right):
         (verts * gv).sum().add(joints.sum()).backward(retain_graph=True)
         return verts, joints, six.grad, betas.grad
 
-    got = run(lambda: MG.graphed_mano_rotmat(graphs, right, rots, betas))
+    got = run(lambda: MG.graphed_mano(graphs, TM.mano_forward_rotmat, right, rots, betas))
     want = run(lambda: TM.mano_forward_rotmat(right, rots, betas, scale_mm=False))
     assert all(_same_bits(a, b) for a, b in zip(got, want))
-    assert MG.graphed_mano_forward.captures == captures == 0
-    assert MG.graphed_mano_forward.replays == replays == 0
+    assert MG.graphed_mano.captures == captures == 0
+    assert MG.graphed_mano.replays == replays == 0
     assert len(graphs) == 0

@@ -1,31 +1,36 @@
-"""HOCNet's trunk and heads through ``graphed_model``
-(``hocon_torch.geometry.mano_graph``), on the CPU: what a capture fixes,
-what the CPU path keeps, and the pieces of the replay that need no card.
+"""HOCNet's trunk and heads through ``graphed_model``, and the one graph
+cache of each model (``hocon_torch.models.graphs``), on the CPU: what a
+capture fixes, what the CPU path keeps, and the pieces of the replay that
+need no card.
 
 On the CPU HOCNet runs its regressions eagerly, with the outputs and
 gradients of the trunk, the heads and ``mano_forward`` called directly.
-The signature separates a moved or replaced parameter, the training mode,
-the object head and autocast. The heads' constants are made once per
-device and dtype, with ``new_tensor``'s bits. A deep copy starts with empty
-caches, and the state dict is unchanged. Each call's outputs are copies laid
-out as the captured ones. Each parameter's gradient is laid out as
-``AccumulateGrad`` lays it out. The capture's parameter stand-ins share the
-parameters' storage and are put back. The graphs themselves need the card:
-``chip_smoke.py``'s ``model_graph`` phase holds them to eager mode bit for
-bit.
+The key of HOCNet's regressions separates a moved or replaced parameter,
+the training mode, the object head, autocast and the precision switches;
+both MANO bodies go through ``graphed_mano`` under one counter pair, keyed
+by the body's name. The heads' constants are made once per device and
+dtype, with ``new_tensor``'s bits. A deep copy of HOCNet or HaMeR starts
+with an empty cache, and the state dict is unchanged. Each call's outputs
+are copies laid out as the captured ones. Each parameter's gradient is
+laid out as ``AccumulateGrad`` lays it out. The capture's parameter
+stand-ins share the parameters' storage and are put back. The graphs
+themselves need the card: ``chip_smoke.py``'s ``model_graph`` phase holds
+them to eager mode bit for bit.
 """
 
 import copy
 import threading
+from unittest import mock
 
 import pytest
 import torch
 from torch import nn
 
 from hocon_torch.geometry import mano as TM
-from hocon_torch.geometry import mano_graph as MG
 from hocon_torch.geometry.project import persp_project, transform_points
+from hocon_torch.models import graphs as MG
 from hocon_torch.models import heads as TH
+from hocon_torch.models.hamer import HaMeR
 from hocon_torch.models.hocnet import HOCNet
 
 torch.set_num_threads(1)
@@ -50,20 +55,54 @@ def mano():
     return TM.synthetic_mano_model(0, device="cpu")
 
 
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it is on the card, so that an entry of
+    ``graphs`` goes on to its key."""
+
+    is_cuda = True
+
+
+class _Keyed(Exception):
+    """Raised in place of a capture, with the entry's arguments."""
+
+
+def _keyed(graphs, key, grad, fn, inputs, counter, module=None, params=()):
+    raise _Keyed(key, grad, fn, inputs, counter)
+
+
+def _entry(call):
+    """(key, grad, fn, inputs, counter) that ``call``'s first entry hands
+    ``_graphed``."""
+    with mock.patch.object(MG, "_graphed", _keyed), pytest.raises(_Keyed) as got:
+        call()
+    return got.value.args
+
+
 def _key(model, images, with_obj=True):
-    """The key ``HOCNet.forward`` gives ``graphed_model``'s cache."""
-    params = tuple(model.parameters())
-    return model._graph_key(with_obj) + MG.graph_signature(model, (images,), params)
+    """The key ``HOCNet.forward`` gives its regressions' graph."""
+    _, camintr, obj = _inputs()
+    return _entry(lambda: model(images.as_subclass(_OnCard), camintr, None,
+                                obj if with_obj else None))[0]
 
 
 @pytest.mark.parametrize("change", ["replaced", "moved", "requires_grad", "eval", "no_object",
-                                    "autocast", "no_grad", "batch", "layout", "none"])
-def test_signature_separates_what_a_capture_fixes(change):
+                                    "autocast", "no_grad", "batch", "layout", "deterministic",
+                                    "cudnn_tf32", "matmul_tf32", "none"])
+def test_signature_separates_what_a_capture_fixes(change, monkeypatch):
     model = HOCNet(with_object=True, seed=0, device="cpu")
     images = _inputs()[0]
     base = _key(model, images)
+    assert base[:2] == ("HOCNet._regress", True)
     with_obj = True
-    if change == "replaced":
+    if change == "deterministic":
+        monkeypatch.setattr(torch.backends.cudnn, "deterministic",
+                            not torch.backends.cudnn.deterministic)
+    elif change == "cudnn_tf32":
+        monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", not torch.backends.cudnn.allow_tf32)
+    elif change == "matmul_tf32":
+        monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32",
+                            not torch.backends.cuda.matmul.allow_tf32)
+    elif change == "replaced":
         w = model.absolute_head.trans_mlp.layers[0].weight
         model.absolute_head.trans_mlp.layers[0].weight = nn.Parameter(w.detach().clone())
     elif change == "moved":
@@ -110,7 +149,7 @@ def test_hocnet_on_the_cpu_runs_its_regressions_eagerly(mano, with_object):
     out = model(images, camintr, mano, obj)
     got = torch.autograd.grad(loss_of(out), list(model.parameters()), allow_unused=True)
     assert (MG.graphed_model.captures, MG.graphed_model.replays) == counts == (0, 0)
-    assert len(model.model_graphs) == 0 and len(model.mano_graphs) == 0
+    assert len(model.graphs) == 0
 
     feats = model.trunk(images)
     pose_pca, betas, root_rot = model.mano_head(feats)
@@ -140,17 +179,33 @@ def test_hocnet_on_the_cpu_runs_its_regressions_eagerly(mano, with_object):
         assert g is None or _same_bits(g, w), name
 
 
-def test_caches_stay_out_of_state_dict_and_copies():
-    model = HOCNet(with_object=True, seed=0, device="cpu")
+def _small_hamer() -> HaMeR:
+    """HaMeR at the small widths of ``tests/test_torch_hamer.py``."""
+    return HaMeR(image_size=64, patch=16, vit_dim=64, vit_depth=2, vit_heads=4, vit_mlp_ratio=4,
+                 dec_dim=64, dec_depth=2, dec_heads=4, dec_dim_head=16, dec_mlp_dim=64,
+                 dtype=torch.float32, seed=0, device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["hocnet", "hamer"])
+def test_cache_stays_out_of_state_dict_and_copies(mano, kind):
+    """One ``graphs`` cache a model: not in the state dict, empty in a deep
+    copy, left empty by a forward on the CPU."""
+    model = HOCNet(with_object=True, seed=0, device="cpu") if kind == "hocnet" else _small_hamer()
     names = {n for n, _ in model.named_parameters()} | {n for n, _ in model.named_buffers()}
     assert set(model.state_dict()) == names
     assert not any("graph" in n for n in names)
+    assert not any("mano" in n and "head" not in n for n in names)
+    assert [n for n, v in vars(model).items() if isinstance(v, MG.Graphs)] == ["graphs"]
     # A captured graph cannot be copied: stand one in.
-    model.model_graphs["key"] = threading.Lock()
+    model.graphs["key"] = threading.Lock()
     twin = copy.deepcopy(model)
-    assert len(twin.model_graphs) == 0 and len(model.model_graphs) == 1
-    assert twin.model_graphs is not model.model_graphs
+    assert len(twin.graphs) == 0 and len(model.graphs) == 1
+    assert twin.graphs is not model.graphs
     assert set(twin.state_dict()) == names
+    images, camintr, obj = _inputs(res=64 if kind == "hamer" else 32, seed=7)
+    with torch.no_grad():
+        twin(images, camintr, mano, obj)
+    assert len(twin.graphs) == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -182,21 +237,35 @@ def test_head_constants_made_once_with_new_tensors_bits(dtype):
     assert _same_bits(rot, TH.rodrigues(axis.objrot_mlp(feats)))
 
 
-def test_mano_entries_keep_their_signatures_and_counters(mano):
-    """``mano_signature`` is PR 19's tuple, and MANO's counters are apart
-    from the model's."""
-    head = torch.randn(3, 18, requires_grad=True)
-    betas = torch.randn(3, 10, requires_grad=True)
-    inputs = (head[:, :15], betas, head[:, 15:])
+@pytest.mark.parametrize("body", [TM.mano_forward, TM.mano_forward_rotmat])
+def test_both_mano_bodies_go_through_one_entry(mano, body):
+    """``graphed_mano`` keys a body's graph by its name and ``graph_signature``
+    over the MANO model and the inputs, counts it under its own counter pair
+    apart from the model's, and captures ``body(mano, *inputs,
+    scale_mm=False)``."""
+    gen = torch.Generator().manual_seed(8)
+    betas = torch.randn(3, 10, generator=gen, requires_grad=True)
+    if body is TM.mano_forward:
+        head = torch.randn(3, 18, generator=gen, requires_grad=True)
+        inputs = (head[:, :15], betas, head[:, 15:])
+    else:
+        six = torch.randn(3, 16, 6, generator=gen, requires_grad=True)
+        inputs = (TH.rot6d_to_matrix(six), betas)
+    on_card = (inputs[0].as_subclass(_OnCard), *inputs[1:])
+    key, grad, fn, captured, counter = _entry(lambda: MG.graphed_mano(MG.Graphs(), body, mano,
+                                                                      *on_card))
     want = (torch.device("cpu"), True, False, torch.is_autocast_enabled("cpu"),
-            torch.get_autocast_dtype("cpu"), id(mano),
+            torch.get_autocast_dtype("cpu"), torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32, id(mano),
             tuple((x.shape, x.stride(), x.storage_offset(), x.dtype, True) for x in inputs))
-    assert MG.mano_signature(mano, *inputs) == want
+    assert key == (body.__name__,) + want and grad
     assert MG.graph_signature(mano, inputs) == want
-    assert MG.graphed_mano_forward is not MG.graphed_model
-    for fn in (MG.graphed_mano_forward, MG.graphed_model):
-        assert isinstance(fn.captures, int) and isinstance(fn.replays, int)
-    assert not hasattr(MG.graphed_mano_rotmat, "captures")
+    assert counter is MG.graphed_mano and MG.graphed_mano is not MG.graphed_model
+    for entry in (MG.graphed_mano, MG.graphed_model):
+        assert isinstance(entry.captures, int) and isinstance(entry.replays, int)
+    assert len(captured) == len(on_card) and all(a is b for a, b in zip(captured, on_card))
+    got, wanted = fn(*inputs), body(mano, *inputs, scale_mm=False)
+    assert all(_same_bits(a, b) for a, b in zip(got, wanted))
 
 
 @pytest.mark.parametrize("case", ["pose_slices", "transposed", "expanded", "contiguous"])

@@ -42,7 +42,7 @@ K2 and K4 once each, and K3 once unless G4 replaced it (then the rounded
 forward is called once); each active group must be called in every warp
 step, G1 and G2 also in every supervised and eval step. A step that breaks
 this stops the run. On the card HOCNet replays MANO from CUDA graphs
-(``hocon_torch/geometry/mano_graph.py``) captured on a signature's first
+(``hocon_torch/models/graphs.py``) captured on a signature's first
 call, so G1's count adds MANO's graph replays: every graph of a run is
 captured inside the swap, since ``repro.main`` builds its models there
 (the warp stage's on a deep copy, whose cache starts empty).
@@ -78,7 +78,7 @@ from hocon_torch.device import resolve_device
 from hocon_torch.geometry import mano as mano_mod
 from hocon_torch.geometry import project as project_mod
 from hocon_torch.geometry import rot as rot_mod
-from hocon_torch.geometry.mano_graph import graphed_mano_forward
+from hocon_torch.models.graphs import graphed_mano
 from hocon_torch.render import raster as raster_mod
 from hocon_torch.render import raster_cuda as RC
 from hocon_torch.render import sample_cuda as SC
@@ -288,12 +288,12 @@ def counted_run(seed: int, swap: TpuRounding, device, **kwargs) -> dict:
 
             def counted(*a, **k):
                 l0, c0, b0 = launches(), dict(swap.calls), swap.k4_bf16
-                r0 = graphed_mano_forward.replays
+                r0 = graphed_mano.replays
                 out = step(*a, **k)
                 launched = {n: v - l0[n] for n, v in launches().items()}
                 called = {g: swap.calls[g] - c0[g] for g in swap.groups}
                 if "G1" in called:
-                    called["G1"] += graphed_mano_forward.replays - r0
+                    called["G1"] += graphed_mano.replays - r0
                 check(kind, launched, called, swap.k4_bf16 - b0)
                 for g, n in called.items():
                     calls[kind][g] += n
